@@ -21,6 +21,9 @@ def pytest_configure(config):
         "markers", "needs_devices(n): requires >= n jax devices; "
         "auto-skipped otherwise (fake host devices with "
         "XLA_FLAGS=--xla_force_host_platform_device_count=N)")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips itself on a host without "
+        "one (on the card: python -m pytest -m gpu tests/test_torch_gpu.py)")
 
 
 def pytest_collection_modifyitems(config, items):
