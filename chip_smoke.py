@@ -5,27 +5,41 @@
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
-1. build  — compile every kernel of the serving path from ``csrc/*.cu``
-   (one ``nvcc`` per source, all at once) and print ``-Xptxas -v``.
+1. build  — compile every kernel from ``csrc/*.cu`` (one ``nvcc`` per
+   source, all at once) and print ``-Xptxas -v``.
 2. check  — hold each kernel against its plain PyTorch version on the
    card: the lane-MLP forward at the three Table-3 encoder shapes x
-   B in {16, 77, 256, 4096} within 1e-4 max-abs, the int8 matmul at the
-   three quantized layers within 1e-5 (the reference's pinned bounds).
+   B in {16, 77, 256, 4096} within 1e-4 max-abs and the int8 matmul at the
+   three quantized layers within 1e-5 (the reference's pinned bounds);
+   the lane-MLP backward at the eight Table-3 autoencoder MLPs x
+   B in {1, 77, 128, 2000} plus a three-lane stack with a dead lane within
+   1e-5 relative; the Eq. 5 rows forward and backward (mse and mae, mask
+   rows at 0 and 1) within 1e-5; the probe step (rows at weight 0) within
+   1e-4.
 3. serve  — a full-width bundle (Table-3 g3, g1_active, g2; random heads;
    10000 cached latents) on the paper's largest scenario (mimic3, 5 active
    features, 10000 aligned rows), served by
-   ``repro_torch.launch.serve_vfl.main`` in fp32 and then int8.  Launch
-   counters are zeroed just before each run and read just after; both
-   kernels must have launched.  The card's logits are held against the
-   CPU engine's on mixed-id rows.
-4. time   — at the bucket-256 shapes: kernel, plain-version and library
-   times (CUDA events over CUDA-graph replays, so host launch overhead is
-   excluded) and the work bound; then the stream's rows/s and p50/p99,
-   served fp32, int8, int8, fp32 by warmed engines.
+   ``repro_torch.launch.serve_vfl.main --load`` in fp32 and then int8.
+   The card's logits are held against the CPU engine's on mixed-id rows.
+4. train  — ``serve_vfl.main`` without ``--load`` on the same scenario:
+   ``run_apcvfl(use_kernel=True)`` at Table-3 widths, batch 128, 2 epochs
+   per stage, then export, save, reload and serve.  The same run on the
+   CPU (same seed: same inits, same batches) must give the same epochs and
+   comm bytes, train losses within 1e-4 relative per epoch (g3's last
+   epoch within 1e-3: see TOL_LOSS_G3_LAST) and metrics within 0.03.
+   Then ``kfold_cv(use_kernel=True)`` on the trained latents (every fold
+   step one probe launch) within 0.03 of the plain probe.
+5. time   — kernel, plain-version and library times (CUDA events over
+   CUDA-graph replays) and the work bound at the serving bucket (256) and
+   the training batch (128); training steps/s per stage with launches per
+   step and a profiler split of a step; then the served stream's rows/s,
+   fp32, int8, int8, fp32 by warmed engines.
 
-The last lines are a ``details:`` line (every measurement as JSON), the
-``kernels`` JSON, the card's name and power limit, and
-``{"ok": true, "device": ...}``.
+Launch counters are zeroed just before each run of a path (serve fp32,
+serve int8, train, probe) and read just after; every kernel must have
+launched on its path.  The last lines are a ``details:`` line (every
+measurement as JSON), the ``kernels`` JSON, the card's name and power
+limit, and ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
@@ -43,12 +57,31 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 PEAK_FP32_FLOPS = 67e12        # H100 SXM, fp32 on the CUDA cores
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM, HBM3
 TOL_MLP = 1e-4                 # lane-MLP forward vs plain, max-abs
+TOL_GRAD = 1e-5                # lane-MLP backward vs plain, relative
 TOL_INT8 = 1e-5                # int8 matmul vs plain, max-abs
+TOL_DISTILL = 1e-5             # Eq. 5 rows and gradients, max-abs
+TOL_PROBE = 1e-4               # probe loss / dW / db, max-abs
 TOL_ENGINE = 1e-4              # card engine vs CPU engine (sum order)
+TOL_LOSS = 1e-4                # card vs CPU train loss per epoch, relative
+# g3's last epoch: g3 trains on the output of three earlier fits and its
+# Adam trajectory amplifies float reassociation (on the CPU alone, the
+# closed-form and the autograd backward already differ by ~1e-4 there)
+TOL_LOSS_G3_LAST = 1e-3
+TOL_METRIC = 0.03              # probe metrics band (tests/test_replicas.py)
 # Table-3 encoders on the serving path: (din, h, dz)
 ENCODERS = {"g1_active": (5, 64, 128), "g3": (5, 256, 256),
             "g2": (384, 256, 256)}
+# the eight autoencoder MLPs trained at mimic3 widths: (din, h, dz)
+AE_SHAPES = {"g1_active.enc": (5, 64, 128), "g1_active.dec": (128, 64, 5),
+             "g1_passive.enc": (10, 128, 256),
+             "g1_passive.dec": (256, 128, 10),
+             "g2.enc": (384, 256, 256), "g2.dec": (256, 256, 384),
+             "g3.enc": (5, 256, 256), "g3.dec": (256, 256, 5)}
 BATCHES = (16, 77, 256, 4096)
+BWD_BATCHES = (1, 77, 128, 2000)
+TRAIN_B = 128                  # the paper's batch size
+DISTILL = dict(D=5, M=256, lam=0.01)          # step 3 at mimic3 widths
+PROBE_FOLDS = 10
 N_CLASSES = 4                  # mimic3
 # the three layers of the int8 active path: (d, c, act)
 INT8_LAYERS = {"l0_selu": (5, 256, "selu"), "l1": (256, 256, "none"),
@@ -56,6 +89,7 @@ INT8_LAYERS = {"l0_selu": (5, 256, "selu"), "l1": (256, 256, "none"),
 BUCKET = 256
 SCENARIO = dict(dataset="mimic3", active_features=5, aligned=10000,
                 requests=2000, seed=0)
+TRAIN = dict(epochs=2, requests=500)
 
 
 def log(msg: str) -> None:
@@ -91,6 +125,41 @@ def _int8_inputs(gen, B, d, c):
 
 def _maxerr(a, b) -> float:
     return float((a - b).abs().max())
+
+
+def _relerr(a, b) -> float:
+    return float((a - b).abs().max() / max(float(b.abs().max()), 1.0))
+
+
+def _bwd_inputs(gen, B, din, h, dz, lanes=1):
+    """Inputs of the lane-MLP backward: the forward's, its saved
+    pre-activations and an output cotangent, with a lane axis."""
+    import torch
+    from repro_torch.kernels import lane_mlp
+    stack = [torch.stack(t) for t in zip(*[_mlp_inputs(gen, B, din, h, dz)
+                                           for _ in range(lanes)])]
+    _, a1, a2 = lane_mlp.launch(*stack, save=True)
+    g = _rand(gen, (lanes, B, dz))
+    xs, w0s, _, w1s, _ = stack
+    return g, xs, a1, a2, w0s, w1s
+
+
+def _distill_inputs(gen, B, D, M):
+    import torch
+    x, xh = _rand(gen, (B, D)), _rand(gen, (B, D))
+    z, zt = _rand(gen, (B, M)), _rand(gen, (B, M))
+    zt[::3, ::4] = z[::3, ::4]              # exact ties: sign(0) = 0
+    mask = (torch.rand((B,), generator=gen) > 0.5).float().cuda()
+    return x, xh, z, zt, mask
+
+
+def _probe_inputs(gen, n, d, C, k):
+    import torch
+    x = _rand(gen, (n, d))
+    y = torch.randint(0, C, (n,), generator=gen, dtype=torch.int32).cuda()
+    w, b = _rand(gen, (k, d, C), 0.1), _rand(gen, (k, C), 0.1)
+    rw = (torch.rand((k, n), generator=gen) > 0.1).float().cuda()
+    return w, b, x, y, rw
 
 
 def phase_build() -> None:
@@ -144,7 +213,59 @@ def phase_check() -> dict:
             log(f"int8_matmul {name} {d}->{c} B={B}: max|err| {e:.3e}")
             _require(e <= TOL_INT8, (name, B, e))
             err["int8_matmul"] = max(err["int8_matmul"], e)
+    check_training_kernels(gen, err)
     return err
+
+
+def check_training_kernels(gen, err: dict) -> None:
+    """The lane-MLP backward, the Eq. 5 rows and the probe step against
+    their plain versions (part of phase 2)."""
+    import torch
+    from repro_torch.kernels import distill_loss, lane_mlp, probe, ref
+    err.update(lane_mlp_bwd=0.0, distill_fwd=0.0, distill_bwd=0.0, probe=0.0)
+    cases = [(name, shp, B, 1, B == 77) for name, shp in AE_SHAPES.items()
+             for B in BWD_BATCHES]
+    cases.append(("g2.dec 3 lanes, one dead", AE_SHAPES["g2.dec"], 77, 3,
+                  False))
+    for name, (din, h, dz), B, lanes, fa in cases:
+        g, xs, a1, a2, w0s, w1s = _bwd_inputs(gen, B, din, h, dz, lanes)
+        if lanes == 3:
+            g[1] = 0.0                      # a dead lane's cotangent
+        got = lane_mlp.launch_bwd(g, xs, a1, a2, w0s, w1s, final_act=fa)
+        want = ref.mlp2_bwd_ref(g, xs, a1, a2, w0s, w1s, fa)
+        torch.cuda.synchronize()
+        e = max(_relerr(a, b) for a, b in zip(got, want))
+        if lanes == 3:
+            _require(all(not bool(t[1].any()) for t in got),
+                     "dead lane gradient not exactly zero")
+        log(f"lane_mlp_bwd {name} B={B} final_act={fa}: rel err {e:.3e}")
+        _require(e <= TOL_GRAD, (name, B, e))
+        err["lane_mlp_bwd"] = max(err["lane_mlp_bwd"], e)
+    for kind in ("mse", "mae"):
+        for B in (1, 77, TRAIN_B, 2000):
+            args = _distill_inputs(gen, B, DISTILL["D"], DISTILL["M"])
+            kw = dict(lam=0.3, kind=kind)
+            e = _maxerr(distill_loss.launch_fwd(*args, **kw),
+                        ref.distill_rows_ref(*args, **kw))
+            g = _rand(gen, (B,))
+            e2 = max(_maxerr(a, b) for a, b in zip(
+                distill_loss.launch_bwd(g, *args, **kw),
+                ref.distill_rows_bwd_ref(g, *args, **kw)))
+            torch.cuda.synchronize()
+            log(f"distill {kind} B={B}: fwd max|err| {e:.3e}, bwd {e2:.3e}")
+            _require(e <= TOL_DISTILL and e2 <= TOL_DISTILL, (kind, B, e, e2))
+            err["distill_fwd"] = max(err["distill_fwd"], e)
+            err["distill_bwd"] = max(err["distill_bwd"], e2)
+    for n, C, k in ((15000, 4, PROBE_FOLDS), (77, 2, 3)):
+        w, b, x, y, rw = _probe_inputs(gen, n, 256, C, k)
+        rwn = rw / torch.clamp(rw.sum(-1, keepdim=True), min=1.0)
+        got = probe.launch(w, b, x, y, rwn)
+        want = ref.probe_grad_ref(w, b, x, y, rwn)
+        torch.cuda.synchronize()
+        e = max(_maxerr(a, bb) for a, bb in zip(got, want))
+        log(f"probe n={n} C={C} lanes={k}: max|err| {e:.3e}")
+        _require(e <= TOL_PROBE, (n, e))
+        err["probe"] = max(err["probe"], e)
 
 
 def make_bundle(seed: int = 0):
@@ -270,6 +391,102 @@ def phase_serve() -> dict:
     return res
 
 
+def _scenario():
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.data.vertical import make_scenario
+    ds = make_dataset(SCENARIO["dataset"], seed=SCENARIO["seed"])
+    return make_scenario(ds, n_active_features=SCENARIO["active_features"],
+                         n_aligned=SCENARIO["aligned"], seed=SCENARIO["seed"])
+
+
+def phase_train() -> dict:
+    """Train, export and serve through the CLI on the card; hold it
+    against the same run on the CPU; then the probe kernel's k-fold CV on
+    the trained latents."""
+    import time
+    import torch
+    from repro_torch import convert
+    from repro_torch.core import autoencoder as ae
+    from repro_torch.core import classifier as clf
+    from repro_torch.core import pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_vfl
+    from repro_torch.serve.vfl import ModelBundle
+    log("=== phase 4: train on mimic3 at full width, export, serve ===")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bundle")
+        out = os.path.join(tmp, "stats.json")
+        argv = ["--dataset", SCENARIO["dataset"],
+                "--aligned", str(SCENARIO["aligned"]),
+                "--active-features", str(SCENARIO["active_features"]),
+                "--epochs", str(TRAIN["epochs"]),
+                "--requests", str(TRAIN["requests"]),
+                "--seed", str(SCENARIO["seed"]), "--bundle", path,
+                "--out", out]
+        ops.reset_launches()
+        rc = serve_vfl.main(argv)
+        train_counts = dict(ops.LAUNCHES)
+        _require(rc == 0, rc)
+        with open(out) as fh:
+            stats = json.load(fh)
+        bundle = ModelBundle.load(path)
+    log(f"train + export + serve: launches {train_counts}")
+    for k in ("lane_mlp_fwd", "lane_mlp_bwd", "distill_fwd", "distill_bwd"):
+        _require(train_counts[k] > 0, f"{k} never ran while training")
+    _require(stats["rows"] > 0 and stats["dispatches"], stats)
+    card = stats["train"]
+
+    # the same run on the CPU: same seed, so same inits and batches
+    sc = _scenario()
+    t0 = time.perf_counter()
+    cpu = pipeline.run_apcvfl(sc, seed=SCENARIO["seed"],
+                              max_epochs=TRAIN["epochs"], use_kernel=True,
+                              device="cpu")
+    cpu_s = time.perf_counter() - t0
+    _require(card["epochs"] == cpu.epochs, (card["epochs"], cpu.epochs))
+    _require(card["comm"] == json.loads(json.dumps(cpu.comm)),
+             (card["comm"], cpu.comm))
+    loss_err = {}
+    for stage, hist in cpu.train_loss.items():
+        loss_err[stage] = [abs(a - b) / abs(b) for a, b in
+                           zip(card["train_loss"][stage], hist)]
+        last = TOL_LOSS_G3_LAST if stage == "g3" else TOL_LOSS
+        _require(len(hist) == len(card["train_loss"][stage])
+                 and max(loss_err[stage][:-1], default=0.0) <= TOL_LOSS
+                 and loss_err[stage][-1] <= last, (stage, loss_err[stage]))
+    metric_gap = {k: abs(card["metrics"][k] - v)
+                  for k, v in cpu.metrics.items()}
+    _require(max(metric_gap.values()) < TOL_METRIC, metric_gap)
+    log(f"card vs cpu: epochs {cpu.epochs}, train-loss rel err per epoch "
+        f"{loss_err}, metric gap {metric_gap}")
+
+    # step 4's probe through the kernel, on the trained latents
+    with torch.no_grad():
+        z_all = ae.fused_encode(convert.to_torch(bundle.g3, device="cuda"),
+                                torch.as_tensor(sc.active.x, device="cuda"))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    m_kernel = clf.kfold_cv(z_all, sc.active.y, sc.n_classes,
+                            use_kernel=True, device="cuda")
+    probe_counts = dict(ops.LAUNCHES)
+    _require(probe_counts["probe"] > 0, "probe kernel never ran")
+    m_plain = clf.kfold_cv(z_all, sc.active.y, sc.n_classes, device="cuda")
+    probe_gap = {k: abs(m_kernel[k] - m_plain[k]) for k in m_plain}
+    _require(max(probe_gap.values()) < TOL_METRIC, probe_gap)
+    _require(all(0.0 <= v <= 1.0 for v in m_kernel.values()), m_kernel)
+    log(f"kfold_cv with the probe kernel: {m_kernel} (launches "
+        f"{probe_counts['probe']}), gap to plain {probe_gap}")
+    return {"launches": {k: train_counts[k] + probe_counts[k]
+                         for k in train_counts},
+            "train_launches": train_counts, "probe_launches": probe_counts,
+            "card": card, "cpu_seconds": cpu_s,
+            "cpu_metrics": cpu.metrics, "loss_rel_err": loss_err,
+            "metric_gap": metric_gap, "kfold_kernel": m_kernel,
+            "kfold_plain": m_plain, "probe_metric_gap": probe_gap,
+            "stream": {k: stats[k] for k in ("rows_per_s", "latency_ms_p50",
+                                              "latency_ms_p99")}}
+
+
 def graph_ms(fn, iters: int = 50, reps: int = 5) -> float:
     """Device time of one ``fn()`` (ms): ``iters`` calls captured in a CUDA
     graph, replayed ``reps`` times between CUDA events."""
@@ -307,7 +524,8 @@ def phase_time() -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    log(f"=== phase 4: timing at the bucket-{BUCKET} shapes ===")
+    log(f"=== phase 5: kernel timing (bucket {BUCKET}, batch "
+        f"{TRAIN_B}) ===")
     gen = torch.Generator().manual_seed(3)
     B = BUCKET
     sets = {"lane_mlp_fwd": [], "int8_matmul": []}
@@ -336,24 +554,184 @@ def phase_time() -> dict:
                 ref.int8_matmul_ref(*a)),
             library=lambda a=(x, w_q, scale, b), s=sel: s(torch.addmm(
                 a[3], a[0], a[1].float() * a[2]))))
+    sets.update(_training_kernel_sets(gen))
     res = {}
     for kname, items in sets.items():
         per_shape = []
         for it in items:
             row = {"shape": it["shape"]}
             for which in ("kernel", "plain", "library"):
-                row[f"{which}_ms"] = graph_ms(it[which])
+                row[f"{which}_ms"] = (None if it[which] is None
+                                      else graph_ms(it[which]))
             row["bound_ms"], row["bound_by"] = _bound_ms(it["flops"],
                                                          it["bytes"])
             per_shape.append(row)
             log(f"{kname} {row}")
         bound, by = _bound_ms(sum(i["flops"] for i in items),
                               sum(i["bytes"] for i in items))
+        lib = [r["library_ms"] for r in per_shape]
         res[kname] = {
             "ms": sum(r["kernel_ms"] for r in per_shape),
             "plain_ms": sum(r["plain_ms"] for r in per_shape),
-            "library_ms": sum(r["library_ms"] for r in per_shape),
+            "library_ms": None if None in lib else sum(lib),
             "bound_ms": bound, "bound_by": by, "per_shape": per_shape}
+    return res
+
+
+def _library_mlp_bwd(g, x, a1, a2, w0, w1):
+    """The lane-MLP backward in the fewest PyTorch calls: five ``mm`` for
+    the gradient products, ``elu_backward`` for selu', two sums."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ref import SELU_ALPHA, SELU_SCALE
+    dw1 = torch.mm(F.selu(a1).T, g)
+    g1 = torch.ops.aten.elu_backward(torch.mm(g, w1.T), SELU_ALPHA,
+                                     SELU_SCALE, 1.0, False, a1)
+    return torch.mm(g1, w0.T), torch.mm(x.T, g1), g1.sum(0), dw1, g.sum(0)
+
+
+def _library_probe(w, b, x, y, rwn):
+    """The probe step as ``log_softmax`` cross-entropy plus ``matmul``."""
+    import torch
+    import torch.nn.functional as F
+    logits = torch.matmul(x, w) + b[:, None]
+    lp = F.log_softmax(logits, dim=-1)
+    yl = y.long()[None, :, None].expand(w.shape[0], -1, 1)
+    loss = -(lp.gather(-1, yl)[..., 0] * rwn).sum(-1)
+    g = (lp.exp() - F.one_hot(y.long(), w.shape[-1])) * rwn[..., None]
+    return loss, torch.matmul(x.T, g), g.sum(1)
+
+
+def _training_kernel_sets(gen) -> dict:
+    """Timing sets of the training kernels at the shapes the training
+    path gives them: the lane-MLP backward of each Table-3 MLP at the
+    batch of 128, step 3's Eq. 5 rows, and one probe step of the 10 fold
+    lanes over mimic3's active rows."""
+    from repro_torch.kernels import distill_loss, lane_mlp, probe, ref
+    B = TRAIN_B
+    sets = {"lane_mlp_bwd": []}
+    for name, (din, h, dz) in AE_SHAPES.items():
+        a = _bwd_inputs(gen, B, din, h, dz)
+        flops = 4.0 * B * (din * h + h * dz)
+        nbytes = 4.0 * (B * (2 * dz + din + h) + din * h + h * dz      # in
+                        + B * din + din * h + h + h * dz + dz)         # out
+        sets["lane_mlp_bwd"].append(dict(
+            shape=f"{name} {din}->{h}->{dz} B={B}", flops=flops,
+            bytes=nbytes, kernel=lambda a=a: lane_mlp.launch_bwd(*a),
+            plain=lambda a=a: ref.mlp2_bwd_ref(*a),
+            library=lambda a=tuple(t[0] for t in a): _library_mlp_bwd(*a)))
+    D, M = DISTILL["D"], DISTILL["M"]
+    args = _distill_inputs(gen, B, D, M)
+    g = _rand(gen, (B,))
+    kw = dict(lam=DISTILL["lam"], kind="mse")
+    shape = f"step 3 B={B} D={D} M={M} mse"
+    sets["distill_fwd"] = [dict(
+        shape=shape, flops=3.0 * B * (D + M + 1),
+        bytes=4.0 * (2 * B * D + 2 * B * M + 2 * B),
+        kernel=lambda: distill_loss.launch_fwd(*args, **kw),
+        plain=lambda: ref.distill_rows_ref(*args, **kw), library=None)]
+    sets["distill_bwd"] = [dict(
+        shape=shape, flops=B * (3.0 * D + 4.0 * M + 5),
+        bytes=4.0 * (3 * B + 3 * B * D + 3 * B * M),
+        kernel=lambda: distill_loss.launch_bwd(g, *args, **kw),
+        plain=lambda: ref.distill_rows_bwd_ref(g, *args, **kw),
+        library=None)]
+    n, d, C, k = len(_scenario().active.x), 256, N_CLASSES, PROBE_FOLDS
+    w, b, x, y, rw = _probe_inputs(gen, n, d, C, k)
+    rwn = rw / rw.sum(-1, keepdim=True).clamp(min=1.0)
+    pa = (w, b, x, y, rwn)
+    sets["probe"] = [dict(
+        shape=f"{k} fold lanes n={n} d={d} C={C}",
+        flops=k * (4.0 * n * d * C + 8.0 * n * C),
+        bytes=4.0 * (n * d + n + k * n + 2 * k * d * C + 2 * k * C + k),
+        kernel=lambda: probe.launch(*pa),
+        plain=lambda: ref.probe_grad_ref(*pa),
+        library=lambda: _library_probe(*pa))]
+    return sets
+
+
+def phase_train_time() -> dict:
+    """Steps/s, ms per epoch and launches per step of each training stage
+    at full width (2 epochs, batch 128, seeded random inits and teacher),
+    then a profiler split of one epoch of g3 between the port's kernels,
+    the other device work (Adam's elementwise ops, the losses, gathers,
+    partial sums) and the host."""
+    import time
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import autoencoder as ae
+    from repro_torch.core import distill, pipeline, training
+    from repro_torch.kernels import ops
+    log("=== phase 5b: training steps at full width ===")
+    sc = _scenario()
+    dev = torch.device("cuda")
+    inits = pipeline._inits(sc, pipeline.ROLES, 7, None, dev)
+    gen = torch.Generator().manual_seed(7)
+    xa = torch.as_tensor(sc.active.x, device=dev)
+    xp = torch.as_tensor(sc.passive.x, device=dev)
+    n_al = SCENARIO["aligned"]
+    zj = _rand(gen, (n_al, 384))
+    zt = torch.zeros((len(xa), 256), device=dev)
+    zt[:n_al] = _rand(gen, (n_al, 256))
+    mask = torch.zeros((len(xa),), device=dev)
+    mask[:n_al] = 1.0
+    recon = ae.make_masked_recon_loss(True)
+    lane = training.LaneSpec
+    g3 = lambda epochs: [training.train(
+        inits["g3"], {"x": xa, "z_teacher": zt, "aligned": mask},
+        distill.make_loss(use_kernel=True), seed=3, max_epochs=epochs)]
+    stages = {
+        "g1 (2 lanes)": lambda: training.train_lanes(
+            [lane(inits["g1_active"], {"x": xa}, 0),
+             lane(inits["g1_passive"], {"x": xp}, 1)], recon,
+            max_epochs=TRAIN["epochs"]),
+        "g2": lambda: training.train_lanes(
+            [lane(inits["g2"], {"x": zj}, 2)], recon,
+            max_epochs=TRAIN["epochs"]),
+        "g3": lambda: g3(TRAIN["epochs"])}
+    res = {}
+    for name, fn in stages.items():
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        rs = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        steps = max(r.steps_run for r in rs)      # a group steps together
+        epochs = max(r.epochs_run for r in rs)
+        res[name] = {"seconds": dt, "steps": steps, "epochs": epochs,
+                     "steps_per_s": steps / dt,
+                     "ms_per_epoch": dt / epochs * 1e3,
+                     "launches_per_step": sum(ops.LAUNCHES.values()) / steps,
+                     "launches": dict(ops.LAUNCHES)}
+        log(f"train {name}: {res[name]}")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        (r,) = g3(1)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    split = {"port kernels": 0.0, "other device work": 0.0}
+    other: dict = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        if any(k in e.name for k in ("lane_mlp", "distill", "probe")):
+            split["port kernels"] += us
+        else:
+            split["other device work"] += us
+            other[e.name] = other.get(e.name, 0.0) + us
+    busy = sum(split.values())
+    res["profile_g3_epoch"] = {
+        "steps": r.steps_run, "wall_ms_profiled": wall_us / 1e3,
+        "device_ms": {k: v / 1e3 for k, v in split.items()},
+        "device_busy_share": busy / wall_us if busy else None,
+        "top_other": sorted(((v / 1e3, k[:80]) for k, v in other.items()),
+                            reverse=True)[:6]}
+    log(f"profile of one g3 epoch: {res['profile_g3_epoch']}")
     return res
 
 
@@ -362,7 +740,7 @@ def phase_turns() -> list:
     engines in one process, so the two modes are compared in turns and
     not in the order phase 3 ran them."""
     from repro_torch.serve import vfl
-    log("=== phase 4b: fp32 and int8 streams in turns ===")
+    log("=== phase 5c: fp32 and int8 streams in turns ===")
     sc, bundle = make_bundle()
     engines = {mode: vfl.VFLServingEngine(bundle, quantize=q, device="cuda")
                for mode, q in (("fp32", None), ("int8", "int8"))}
@@ -393,20 +771,27 @@ def main() -> int:
     phase_build()
     errs = phase_check()
     serve = phase_serve()
+    train = phase_train()
     timing = phase_time()
+    train_time = phase_train_time()
     turns = phase_turns()
 
-    srcs = {"lane_mlp_fwd": ("src/repro_torch/kernels/csrc/lane_mlp_fwd.cu",
-                             "src/repro/kernels/lane_mlp.py:57"),
-            "int8_matmul": ("src/repro_torch/kernels/csrc/int8_matmul.cu",
-                            "src/repro/kernels/int8_matmul.py:35")}
+    csrc = "src/repro_torch/kernels/csrc/"
+    srcs = {"lane_mlp_fwd": ("lane_mlp_fwd.cu", "lane_mlp.py:57"),
+            "lane_mlp_bwd": ("lane_mlp_bwd.cu", "lane_mlp.py:72"),
+            "int8_matmul": ("int8_matmul.cu", "int8_matmul.py:35"),
+            "distill_fwd": ("distill_loss.cu", "distill_loss.py:31"),
+            "distill_bwd": ("distill_loss.cu", "distill_loss.py:45"),
+            "probe": ("probe.cu", "probe.py:35")}
     kernels = []
     for name in ops.LAUNCHES:
         t = timing[name]
+        launches = serve["launches"][name] + train["launches"][name]
+        _require(launches > 0, f"{name} never launched on its path")
         kernels.append({
-            "name": name, "route": "cuda", "source": srcs[name][0],
-            "replaces": srcs[name][1],
-            "launches": serve["launches"][name],
+            "name": name, "route": "cuda", "source": csrc + srcs[name][0],
+            "replaces": "src/repro/kernels/" + srcs[name][1],
+            "launches": launches,
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
@@ -419,14 +804,16 @@ def main() -> int:
               for m in ("none", "int8")}
     log(f"stream (mimic3, {SCENARIO['requests']} requests): {stream}")
     log("details: " + json.dumps({"timing": timing, "serve": serve,
+                                  "train": train, "train_time": train_time,
                                   "turns": turns,
                                   "torch": torch.__version__,
                                   "cuda": torch.version.cuda}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
+    # the script drives one card, whatever the host has
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
 
 

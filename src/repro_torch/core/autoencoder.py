@@ -1,11 +1,17 @@
 """Symmetric MLP autoencoders (paper Table 3, SELU activations): the
-forward half of ``repro.core.autoencoder``.
+port of ``repro.core.autoencoder``.
 
 Parameters are plain dicts of tensors, ``{"w0", "b0", "w1", "b1", ...}``
 per MLP and ``{"enc", "dec"}`` per autoencoder, with weights in the
 reference's ``(d_in, d_out)`` layout, so trees cross between the packages
 unchanged.  ``fused_*`` route the 2-layer Table-3 MLP through the lane-MLP
-kernel (``kernels.ops.fused_mlp2``).  The losses come with training.
+kernels (forward and closed-form backward, ``kernels.ops``).
+
+Every function here also takes a stack of lanes: params with a leading
+lane axis (weights ``(L, d_in, d_out)``, biases ``(L, d_out)``) and data
+``(L, B, d)``.  The losses then return one value per lane ``(L,)``, which
+is how ``training.train_lanes`` feeds a shape group to the kernels' lane
+axis in one call.
 """
 from __future__ import annotations
 
@@ -58,7 +64,7 @@ def mlp_apply(params: dict, x: torch.Tensor, *,
               final_act: bool = False) -> torch.Tensor:
     n = _n_layers(params)
     for i in range(n):
-        x = x @ params[f"w{i}"] + params[f"b{i}"]
+        x = x @ params[f"w{i}"] + params[f"b{i}"].unsqueeze(-2)
         if i < n - 1 or final_act:
             x = selu(x)
     return x
@@ -74,13 +80,89 @@ def reconstruct(params: dict, x: torch.Tensor) -> torch.Tensor:
 
 def fused_mlp_apply(params: dict, x: torch.Tensor, *,
                     final_act: bool = False) -> torch.Tensor:
-    """``mlp_apply`` through the lane-MLP kernel when the MLP is the
-    2-layer Table-3 shape; MLPs of any other depth take the layer loop."""
+    """``mlp_apply`` through the lane-MLP kernels when the MLP is the
+    2-layer Table-3 shape (one fused forward, closed-form backward); MLPs
+    of any other depth take the layer loop.  ``x`` of shape (L, B, d)
+    with stacked params runs all L lanes in one launch."""
     if _n_layers(params) != 2:
         return mlp_apply(params, x, final_act=final_act)
-    return kops.fused_mlp2(x, params["w0"], params["b0"], params["w1"],
-                           params["b1"], final_act=final_act)
+    args = (x, params["w0"], params["b0"], params["w1"], params["b1"])
+    if x.dim() == 3:
+        return kops.lane_mlp2(*args, final_act=final_act)
+    return kops.fused_mlp2(*args, final_act=final_act)
 
 
 def fused_encode(params: dict, x: torch.Tensor) -> torch.Tensor:
     return fused_mlp_apply(params["enc"], x)
+
+
+def fused_reconstruct(params: dict, x: torch.Tensor) -> torch.Tensor:
+    return fused_mlp_apply(params["dec"], fused_encode(params, x))
+
+
+def _mean_rows(t: torch.Tensor) -> torch.Tensor:
+    """Mean over the last two axes: a scalar, or one value per lane."""
+    return torch.mean(t, dim=(-2, -1))
+
+
+def _reconstruct(params: dict, x: torch.Tensor) -> torch.Tensor:
+    # the card has no path but the kernels, so a plain loss of a CUDA
+    # batch reconstructs through them too (same math as the layer loop)
+    return (fused_reconstruct if x.is_cuda else reconstruct)(params, x)
+
+
+def recon_loss(params: dict, batch: dict) -> torch.Tensor:
+    x = batch["x"]
+    return _mean_rows(torch.square(x - _reconstruct(params, x)))
+
+
+def _masked_mean(x, x_hat, fm, rw):
+    se = torch.square(x - x_hat) * fm.unsqueeze(-2)
+    per_row = torch.sum(se, dim=-1) / torch.clamp(
+        torch.sum(fm, dim=-1, keepdim=True), min=1.0)
+    return torch.sum(per_row * rw, dim=-1) / torch.clamp(
+        torch.sum(rw, dim=-1), min=1.0)
+
+
+def masked_recon_loss(params: dict, batch: dict) -> torch.Tensor:
+    """``recon_loss`` over the padded-stack batches of
+    ``training.train_lanes``: ``mask`` (D,) selects the party's real
+    feature columns, ``row_w`` (B,) its real rows.  With no padding this
+    equals ``recon_loss`` exactly (mean over real entries)."""
+    x = batch["x"]
+    return _masked_mean(x, _reconstruct(params, x), batch["mask"],
+                        batch["row_w"])
+
+
+def make_recon_loss(use_kernel: bool = False):
+    """``recon_loss`` with the reconstruction routed through the lane-MLP
+    kernels when ``use_kernel=True``: the same math, one fused pass per
+    MLP.  On a CUDA tensor ``recon_loss`` reconstructs through the kernels
+    too: the card has no other path."""
+    return _fused_recon_loss if use_kernel else recon_loss
+
+
+def _fused_recon_loss(params: dict, batch: dict) -> torch.Tensor:
+    x = batch["x"]
+    return _mean_rows(torch.square(x - fused_reconstruct(params, x)))
+
+
+_fused_recon_loss.cache_key = ("repro.core.autoencoder.make_recon_loss",
+                               True)
+
+
+def make_masked_recon_loss(use_kernel: bool = False):
+    """``masked_recon_loss`` with a fused-kernel reconstruction path: the
+    lane-engine (``train_lanes``) variant of ``make_recon_loss``."""
+    return _fused_masked_recon_loss if use_kernel else masked_recon_loss
+
+
+def _fused_masked_recon_loss(params: dict, batch: dict) -> torch.Tensor:
+    x = batch["x"]
+    return _masked_mean(x, fused_reconstruct(params, x), batch["mask"],
+                        batch["row_w"])
+
+
+_fused_masked_recon_loss.cache_key = (
+    "repro.core.autoencoder.make_masked_recon_loss", True)
+

@@ -1,11 +1,14 @@
-"""CUDA launcher for the lane-MLP forward kernel (``csrc/lane_mlp_fwd.cu``).
+"""CUDA launchers for the lane-MLP forward and backward kernels
+(``csrc/lane_mlp_fwd.cu``, ``csrc/lane_mlp_bwd.cu``).
 
-Counterpart of the forward half of ``repro.kernels.lane_mlp``
-(``_fwd_kernel``): ``selu(x @ w0 + b0) @ w1 + b1``, optionally selu'd, for
+Counterparts of ``repro.kernels.lane_mlp``: ``launch`` runs
+``_fwd_kernel``, ``selu(x @ w0 + b0) @ w1 + b1``, optionally selu'd, for
 each lane of an ``(L, B, din)`` stack, with the hidden activation kept on
-chip.  ``save=True`` also returns the pre-activations ``a1`` and ``a2``
-the backward will need.  The public wrappers, which dispatch CPU tensors
-to the plain version, are in ``kernels.ops``.
+chip; ``save=True`` also returns the pre-activations ``a1`` and ``a2``
+the backward needs.  ``launch_bwd`` runs ``_bwd_kernel``, the closed-form
+backward, and sums its per-tile weight partials.  The public wrappers
+(``kernels.ops``: ``fused_mlp2``, ``fused_lane_mlp2`` and the autograd
+Function behind them) dispatch CPU tensors to the plain versions.
 """
 from __future__ import annotations
 
@@ -28,6 +31,18 @@ def _lib() -> ctypes.CDLL:
     lib.lane_mlp_fwd_max_hidden.restype = _I
     lib.lane_mlp_fwd_error_string.argtypes = [_I]
     lib.lane_mlp_fwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _lib_bwd() -> ctypes.CDLL:
+    lib = _build.library("lane_mlp_bwd")
+    lib.lane_mlp_bwd.argtypes = [_P] * 14 + [_I] * 6 + [_P]
+    lib.lane_mlp_bwd.restype = _I
+    lib.lane_mlp_bwd_tile_rows.restype = _I
+    lib.lane_mlp_bwd_max_width.restype = _I
+    lib.lane_mlp_bwd_error_string.argtypes = [_I]
+    lib.lane_mlp_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -70,3 +85,50 @@ def launch(xs, w0s, b0s, w1s, b1s, *, final_act: bool = False,
     _launch.raise_on_error(rc, "lane_mlp_fwd launch",
                            lib.lane_mlp_fwd_error_string)
     return (out, a1, a2) if save else out
+
+
+def launch_bwd(g, xs, a1, a2, w0s, w1s, *, final_act: bool = False,
+               need_dx: bool = True):
+    """The backward for output cotangent ``g`` (L, B, dz), from the inputs
+    and saved pre-activations of ``launch(..., save=True)``: two kernel
+    launches on the current stream, then the deterministic sum of the
+    weight partials over their tile axis.  Returns ``(dx, dw0, db0, dw1,
+    db1)`` with the lane axis; ``dx`` is None unless ``need_dx``."""
+    if xs.dim() != 3:
+        raise ValueError(f"xs must be (L, B, din), got {tuple(xs.shape)}")
+    L, B, din = xs.shape
+    h, dz = w0s.shape[-1], w1s.shape[-1]
+    dev = xs.device
+    if dev.type != "cuda":
+        raise ValueError(f"lane_mlp.launch_bwd needs CUDA tensors, got {dev}")
+    f32 = torch.float32
+    for name, t, shape in (("g", g, (L, B, dz)), ("xs", xs, (L, B, din)),
+                           ("a1", a1, (L, B, h)), ("a2", a2, (L, B, dz)),
+                           ("w0s", w0s, (L, din, h)),
+                           ("w1s", w1s, (L, h, dz))):
+        _launch.check(name, t, shape, f32, dev)
+    lib = _lib_bwd()
+    if h + dz > lib.lane_mlp_bwd_max_width():
+        raise ValueError(f"widths h={h} + dz={dz} exceed the backward "
+                         f"kernel's {lib.lane_mlp_bwd_max_width()}")
+    if B == 0:
+        raise ValueError("lane_mlp.launch_bwd: empty batch")
+    T = -(-B // lib.lane_mlp_bwd_tile_rows())
+    new = lambda *shape: torch.empty(shape, dtype=f32, device=dev)
+    dx = new(L, B, din) if need_dx else None
+    dw0p, db0p = new(L, T, din, h), new(L, T, h)
+    dw1p, db1p = new(L, T, h, dz), new(L, T, dz)
+    g1, h1 = new(L, B, h), new(L, B, h)
+    g2 = new(L, B, dz) if final_act else None
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        rc = lib.lane_mlp_bwd(
+            g.data_ptr(), xs.data_ptr(), a1.data_ptr(), a2.data_ptr(),
+            w0s.data_ptr(), w1s.data_ptr(), ptr(dx), dw0p.data_ptr(),
+            db0p.data_ptr(), dw1p.data_ptr(), db1p.data_ptr(), g1.data_ptr(),
+            h1.data_ptr(), ptr(g2), L, B, din, h, dz, int(bool(final_act)),
+            torch.cuda.current_stream().cuda_stream)
+    _launch.raise_on_error(rc, "lane_mlp_bwd launch",
+                           lib.lane_mlp_bwd_error_string)
+    return (dx, dw0p.sum(dim=1), db0p.sum(dim=1), dw1p.sum(dim=1),
+            db1p.sum(dim=1))

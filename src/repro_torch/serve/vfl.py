@@ -10,7 +10,7 @@ the joint-representation space.  This module serves such a model:
   the passive latents it received for the PSI-aligned rows).  Leaves are
   host numpy arrays; ``save``/``load`` use the reference's checkpoint
   format, so a bundle saved by either package loads in the other.
-  (``export_bundle`` needs ``fit_logreg`` and comes with training.)
+  ``export_bundle`` captures one from a finished ``run_apcvfl``.
 
 * ``VFLServingEngine`` — two predict paths on one device:
 
@@ -120,6 +120,59 @@ class ModelBundle:
                        if "cache" in tree else None),
             cache_z=tree["cache"]["z"] if "cache" in tree else None,
         )
+
+
+def export_bundle(result, sc, *, x_mean=None, x_scale=None,
+                  head_steps: int = 300) -> ModelBundle:
+    """Capture a finished ``run_apcvfl`` (its ``RunResult`` plus the
+    scenario that trained it) as a ``ModelBundle``, on the device the run
+    trained on.
+
+    The serving head is fit ONCE on the full enhanced dataset
+    ``g3_enc(X_active)`` with the active party's labels (the k-fold CV of
+    training is an evaluation protocol, not a deployable classifier); when
+    the run carries the collaborative artifacts, a joint head is fit the
+    same way on the teacher representations of the aligned rows."""
+    if result.params is None or "g3" not in result.params:
+        raise ValueError("export_bundle needs a RunResult with trained g3 "
+                         "params (run_apcvfl)")
+    g3 = result.params["g3"]
+    dev = g3["enc"]["w0"].device
+    xa = np.asarray(sc.active.x, np.float32)
+    y = np.asarray(sc.active.y)
+    n_classes = int(sc.n_classes)
+    with torch.no_grad():
+        z_all = ae.fused_encode(g3, torch.as_tensor(xa, device=dev))
+        head_active = clf.fit_logreg(z_all, y, n_classes, steps=head_steps)
+        g1a = result.params.get("g1_active")
+        g2 = result.params.get("g2")
+        head_joint = cache_ids = cache_z = None
+        if g1a is not None and g2 is not None and result.artifacts:
+            cache_ids = np.asarray(result.artifacts["aligned_ids"],
+                                   dtype=np.int64)
+            cache_z = convert.to_numpy(
+                result.artifacts["z_passive_aligned"]).astype(np.float32)
+            pos = id_positions(sc.active.ids)
+            idx_a = np.asarray([pos[int(i)] for i in cache_ids], np.int64)
+            za = ae.fused_encode(g1a, torch.as_tensor(xa[idx_a], device=dev))
+            zj = torch.cat([za, torch.as_tensor(cache_z, device=dev)], dim=1)
+            head_joint = clf.fit_logreg(ae.fused_encode(g2, zj), y[idx_a],
+                                        n_classes, steps=head_steps)
+
+    d = xa.shape[1]
+    host = lambda t: None if t is None else convert.to_numpy(t)
+    meta = {"method": result.method, "dataset": getattr(sc, "name", ""),
+            "n_classes": n_classes, "z_dim": result.z_dim,
+            "n_features_active": d, "seed": result.seed,
+            "n_cached": 0 if cache_ids is None else int(len(cache_ids))}
+    return ModelBundle(
+        meta=meta, g3=host(g3), head_active=host(head_active),
+        x_mean=(np.zeros(d, np.float32) if x_mean is None
+                else np.asarray(x_mean, np.float32)),
+        x_scale=(np.ones(d, np.float32) if x_scale is None
+                 else np.asarray(x_scale, np.float32)),
+        g1_active=host(g1a), g2=host(g2), head_joint=host(head_joint),
+        cache_ids=cache_ids, cache_z=cache_z)
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,7 @@ import chip_smoke
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
                                                      "repro")]
 assert not bad, bad
+print(" ".join(mods))
 print("imported", len(mods))
 '''
 
@@ -49,7 +50,12 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
                        timeout=300)
     assert r.returncode == 0, r.stderr
     n = int(r.stdout.split()[-1])
-    assert n >= 20                       # every module of the package
+    assert n >= 30                       # every module of the package
+    for mod in ("optim.adam", "core.padding", "core.comm", "core.training",
+                "core.distill", "core.pipeline", "configs.apcvfl_paper",
+                "experiments.results", "kernels.distill_loss",
+                "kernels.probe"):
+        assert f"repro_torch.{mod}" in r.stdout.split(), mod
 
 
 def test_engine_without_device_raises_on_host_without_card():
@@ -73,12 +79,15 @@ def test_engine_without_device_raises_on_host_without_card():
 
 def test_entry_points_default_to_cuda():
     from repro_torch import convert
-    from repro_torch.core import autoencoder
+    from repro_torch.core import autoencoder, classifier, pipeline
     from repro_torch.serve import quant, vfl
     for fn in (vfl.VFLServingEngine.__init__, vfl.RepresentationCache,
                autoencoder.init_mlp, autoencoder.init_autoencoder,
                quant.quantize_active_path, quant.parity_report,
-               convert.to_torch):
+               convert.to_torch, pipeline.run_apcvfl,
+               pipeline.run_apcvfl_aligned_only, pipeline.run_local_baseline,
+               classifier.init_logreg, classifier.kfold_cv,
+               classifier.kfold_cv_many):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     from repro_torch.launch import serve_vfl
     assert "default=\"cuda\"" in inspect.getsource(serve_vfl.main)

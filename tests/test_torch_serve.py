@@ -228,7 +228,7 @@ def test_cli_serves_a_jax_bundle(served, tmp_path, quantize, capsys):
 
 
 @pytest.mark.parametrize("argv,msg", [
-    ([], "later slice"),
+    (["--n-parties", "3"], "later slice"),
     (["--load", "B", "--arrival", "poisson"], "runtime"),
     (["--load", "B", "--fault", "plan.json"], "runtime"),
     (["--load", "B", "--dataset", "credit"], "trained on dataset"),
