@@ -26,6 +26,7 @@ Hyperparameter defaults come from ``configs.apcvfl_paper.TABULAR``.
 """
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -70,14 +71,15 @@ def _rows(x, dev) -> torch.Tensor:
 def run_apcvfl(sc: VFLScenario, *, lam: float = HP.lam, kind: str = HP.kind,
                seed: int = 0, batch_size: int = HP.batch_size,
                max_epochs: int = HP.max_epochs, patience: int = HP.patience,
-               lr: float = HP.lr, use_kernel: bool = False,
-               ablation: bool = False, exchange=None,
+               lr: float = HP.lr, use_kernel: bool = False, exchange=None,
                init_params: Optional[dict] = None,
                perm_fn: Optional[Callable] = None,
                device="cuda") -> RunResult:
-    """Full protocol on ``device``.  ``ablation=True`` trains g3 WITHOUT
-    the distillation term (paper's 'Ablation' curves).  ``exchange``
-    transforms (DP noise, quantization) are not ported yet and raise."""
+    """Full protocol on ``device``.  ``exchange`` transforms (DP noise,
+    quantization) are not ported yet and raise.  The result's ``steps``
+    holds each role's Adam steps and ``seconds`` each stage's wall time
+    (the training loop syncs the host at every epoch's end, so timing a
+    stage needs no extra sync)."""
     if exchange is not None:
         raise NotImplementedError(
             "run_apcvfl(exchange=...): exchange transforms are not ported "
@@ -85,9 +87,15 @@ def run_apcvfl(sc: VFLScenario, *, lam: float = HP.lam, kind: str = HP.kind,
     dev = resolve_device(device)
     inits = _inits(sc, ROLES, seed, init_params, dev)
     channel = comm.Channel()
-    epochs, losses = {}, {}
+    epochs, losses, steps, seconds = {}, {}, {}, {}
     train_kw = dict(batch_size=batch_size, max_epochs=max_epochs,
                     patience=patience, lr=lr, perm_fn=perm_fn)
+
+    def record(stage, t0, **runs):
+        seconds[stage] = time.perf_counter() - t0
+        for role, r in runs.items():
+            epochs[role], losses[role] = r.epochs_run, r.train_loss
+            steps[role] = r.steps_run
 
     # --- PSI on IDs (assumed precondition in the paper; bytes logged) ------
     aligned_ids, idx_a, idx_p = psi(sc.active.ids, sc.passive.ids,
@@ -96,67 +104,62 @@ def run_apcvfl(sc: VFLScenario, *, lam: float = HP.lam, kind: str = HP.kind,
     recon = ae.make_masked_recon_loss(use_kernel)
 
     with torch.no_grad():
-        if not ablation:
-            # --- Step 1: local representation learning ---------------------
-            ra, rp = training.train_lanes(
-                [training.LaneSpec(inits["g1_active"], {"x": xa}, seed),
-                 training.LaneSpec(inits["g1_passive"], {"x": xp},
-                                   seed + 1)], recon, **train_kw)
-            for role, r in (("g1_active", ra), ("g1_passive", rp)):
-                epochs[role], losses[role] = r.epochs_run, r.train_loss
-            za_al = ae.fused_encode(ra.params, xa[idx_a])
-            zp_al = ae.fused_encode(rp.params, xp[idx_p])
-            # THE single information exchange: passive -> active, aligned
-            # latents (byte accounting reads only shape/dtype)
-            zp_al = comm.exchange_array(channel, "step1/Z_passive_aligned",
-                                        zp_al, seed=seed)
+        # --- Step 1: local representation learning -------------------------
+        t0 = time.perf_counter()
+        ra, rp = training.train_lanes(
+            [training.LaneSpec(inits["g1_active"], {"x": xa}, seed),
+             training.LaneSpec(inits["g1_passive"], {"x": xp}, seed + 1)],
+            recon, **train_kw)
+        record("g1", t0, g1_active=ra, g1_passive=rp)
+        za_al = ae.fused_encode(ra.params, xa[idx_a])
+        zp_al = ae.fused_encode(rp.params, xp[idx_p])
+        # THE single information exchange: passive -> active, aligned
+        # latents (byte accounting reads only shape/dtype)
+        zp_al = comm.exchange_array(channel, "step1/Z_passive_aligned",
+                                    zp_al, seed=seed)
 
-            # --- Step 2: aligned (joint) representation learning -----------
-            zj = torch.cat([za_al, zp_al], dim=1)
-            (r2,) = training.train_lanes(
-                [training.LaneSpec(inits["g2"], {"x": zj}, seed + 2)],
-                recon, **train_kw)
-            epochs["g2"], losses["g2"] = r2.epochs_run, r2.train_loss
-            z_teacher_al = ae.fused_encode(r2.params, zj)
-            m2 = z_teacher_al.shape[1]
-        else:
-            m2 = ae.table3_encoder("g2", 1)[-1]
+        # --- Step 2: aligned (joint) representation learning ---------------
+        zj = torch.cat([za_al, zp_al], dim=1)
+        t0 = time.perf_counter()
+        (r2,) = training.train_lanes(
+            [training.LaneSpec(inits["g2"], {"x": zj}, seed + 2)], recon,
+            **train_kw)
+        record("g2", t0, g2=r2)
+        z_teacher_al = ae.fused_encode(r2.params, zj)
+        m2 = z_teacher_al.shape[1]
 
         # --- Step 3: knowledge distillation into g3 --------------------------
         n_a = len(xa)
+        rows = torch.as_tensor(idx_a, device=dev)
         z_teacher = torch.zeros((n_a, m2), device=dev)
+        z_teacher[rows] = z_teacher_al
         mask = torch.zeros((n_a,), device=dev)
-        if not ablation:
-            rows = torch.as_tensor(idx_a, device=dev)
-            z_teacher[rows] = z_teacher_al
-            mask[rows] = 1.0
+        mask[rows] = 1.0
         assert ae.table3_encoder("g3", xa.shape[1])[-1] == m2, \
             "M3 == M2: dimensional consistency (Sec. 4.3)"
         loss3 = distill.make_loss(lam=lam, kind=kind, use_kernel=use_kernel)
+        t0 = time.perf_counter()
         r3 = training.train(inits["g3"], {"x": xa, "z_teacher": z_teacher,
                                           "aligned": mask}, loss3,
                             seed=seed + 3, **train_kw)
-        epochs["g3"], losses["g3"] = r3.epochs_run, r3.train_loss
+        record("g3", t0, g3=r3)
 
         # --- Step 4: classifier on the enhanced dataset ----------------------
         z_all = ae.fused_encode(r3.params, xa)
     metrics = clf.kfold_cv(z_all, sc.active.y, sc.n_classes, seed=seed,
                            device=dev)
 
-    params = {"g3": r3.params}
-    artifacts = None
-    if not ablation:
-        # what the active party holds after training, for serving export:
-        # its own encoders plus the passive latents it RECEIVED
-        params["g1_active"] = ra.params
-        params["g2"] = r2.params
-        artifacts = {"aligned_ids": np.asarray(aligned_ids),
-                     "z_passive_aligned": zp_al}
+    # what the active party holds after training, for serving export: its
+    # own encoders plus the passive latents it RECEIVED
     return RunResult(method="apcvfl", metrics=metrics,
-                     rounds=0 if ablation else comm.APCVFL_ROUNDS,
-                     epochs=epochs, comm=channel.summary(), seed=seed,
-                     z_dim=m2, train_loss=losses, params=params,
-                     channels=(channel,), artifacts=artifacts)
+                     rounds=comm.APCVFL_ROUNDS, epochs=epochs,
+                     comm=channel.summary(), seed=seed, z_dim=m2,
+                     train_loss=losses, steps=steps, seconds=seconds,
+                     params={"g3": r3.params, "g1_active": ra.params,
+                             "g2": r2.params},
+                     channels=(channel,),
+                     artifacts={"aligned_ids": np.asarray(aligned_ids),
+                                "z_passive_aligned": zp_al})
 
 
 def run_local_baseline(sc, seed: int = 0, *, device="cuda") -> dict:

@@ -23,8 +23,10 @@ class RunResult:
     ``comm`` is a JSON-ready dict in the ``Channel.summary()`` shape;
     ``rounds`` is the protocol's round count.  ``train_loss`` holds each
     stage's per-epoch train losses (the reference keeps them only inside
-    its ``TrainResult``s).  ``channels``, ``params`` and ``artifacts`` are
-    live objects for in-process use and are excluded from ``to_record()``;
+    its ``TrainResult``s); ``steps`` holds each role's Adam steps and
+    ``seconds`` each stage's wall time, where the runner records them
+    (``run_apcvfl``: stages ``g1``, ``g2``, ``g3``).  ``channels``,
+    ``params`` and ``artifacts`` are live objects for in-process use and are excluded from ``to_record()``;
     ``artifacts`` carries what the active party holds after training and
     needs for online serving (aligned row ids, the received passive
     latents), consumed by ``repro_torch.serve.vfl.export_bundle``."""
@@ -37,6 +39,8 @@ class RunResult:
     scenario: Dict = field(default_factory=dict)
     z_dim: Optional[int] = None
     train_loss: Dict[str, list] = field(default_factory=dict, repr=False)
+    steps: Dict[str, int] = field(default_factory=dict, repr=False)
+    seconds: Dict[str, float] = field(default_factory=dict, repr=False)
     params: Optional[dict] = field(default=None, repr=False)
     channels: Tuple[comm.Channel, ...] = field(default=(), repr=False)
     artifacts: Optional[dict] = field(default=None, repr=False)

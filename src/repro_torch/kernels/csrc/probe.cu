@@ -16,9 +16,12 @@
 // _probe_call), the gradient of every fold's probe step in
 // classifier.kfold_cv / fit_logreg with use_kernel=True.
 //
-// What bounds it on the H100: bytes.  x (n x 256 fp32) is read for every
-// fold lane while each element does 2*C multiply-adds per pass, far below
-// the card's 20 operations per byte; the function itself needs x once.
+// What bounds it on the H100: operations, at the k = 10 fold lanes of
+// kfold_cv.  The function needs x (n x 256 fp32) once, while its two
+// products do 4*C operations per element of x for each of the k lanes,
+// so k*4*C = 160 operations per 4-byte element lies above the card's
+// 20 operations per byte (fp32 on the CUDA cores).  This kernel reads x
+// again for every lane (mostly from L2), which a faster one would share.
 //
 // Design: grid (row tiles, lanes).  A block stages its TR x d tile of x in
 // shared memory (rows padded to d + 1 floats so the logit pass reads

@@ -187,7 +187,8 @@ def _train_and_export(args, sc, device):
           f"{reloaded.meta['n_cached']} cached latents)")
     info = {"seconds": seconds, "metrics": result.metrics,
             "epochs": result.epochs, "comm": result.comm,
-            "train_loss": result.train_loss}
+            "train_loss": result.train_loss, "steps": result.steps,
+            "stage_seconds": result.seconds}
     return reloaded, info
 
 

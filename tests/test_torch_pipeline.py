@@ -84,7 +84,10 @@ def test_run_apcvfl_matches_reference(reference_run, port_runs, use_kernel):
     assert got.epochs == want.epochs
     assert (got.rounds, got.z_dim, got.method) == (want.rounds, want.z_dim,
                                                    want.method)
-    assert set(got.train_loss) == set(got.epochs)
+    assert set(got.train_loss) == set(got.epochs) == set(got.steps)
+    assert all(got.steps[r] >= got.epochs[r] > 0 for r in got.epochs)
+    assert set(got.seconds) == {"g1", "g2", "g3"}
+    assert all(s > 0 for s in got.seconds.values())
     for role in ("g1_active", "g2", "g3"):
         for a, b in zip(tree_leaves(got.params[role]),
                         jax.tree.leaves(want.params[role])):
@@ -131,11 +134,7 @@ def test_export_bundle_matches_reference(scenario, port_runs):
         assert abs(acc[0] - acc[1]) < METRIC_TOL, (path, acc)
 
 
-def test_run_apcvfl_ablation_and_refusals(scenario):
-    res = tpipe.run_apcvfl(scenario, seed=1, max_epochs=1, ablation=True,
-                           device="cpu")
-    assert set(res.epochs) == {"g3"} and res.rounds == 0
-    assert res.artifacts is None
+def test_run_apcvfl_refuses_exchange_transforms(scenario):
     with pytest.raises(NotImplementedError, match="exchange"):
         tpipe.run_apcvfl(scenario, exchange=object(), device="cpu")
 
