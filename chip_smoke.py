@@ -18,7 +18,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    1e-4.  Then each training wrapper as the path calls it, on the card
    against itself on CPU copies at the same bounds: ``fused_mlp2`` and
    ``fused_lane_mlp2`` under autograd with and without an input gradient,
-   ``fused_distill_rows`` and ``probe_grad_step`` in both forms.
+   ``fused_distill_rows`` and ``probe_grad_step`` in both forms.  Then the
+   flash-attention wrapper at four (B, S, H, K, hd) shapes, causal with
+   window 0 and 128 and full, and the decode-attention wrapper at W 64 and
+   1024 with empty slots, window 0 and 48, fp32 within 2e-5 and bf16
+   within 3e-2 (the reference's bounds), and with every slot empty (0).
 3. serve  — a full-width bundle (Table-3 g3, g1_active, g2; random heads;
    10000 cached latents) on the paper's largest scenario (mimic3, 5 active
    features, 10000 aligned rows), served by
@@ -43,9 +47,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
    autograd) must lie below it, and ``run_apcvfl`` on the card with a
    planted fault in the Eq. 5 backward (the distillation gradient scaled)
    must land above it.
+7. lm     — the dense decoder's serving path: internlm2-1.8b at full width
+   and depth in bf16 through ``repro_torch.launch.serve.main --no-smoke``
+   (batch 8, 1024 slots, prefill 128, 32 requests of 16-128 prompt tokens,
+   64 new tokens each), then ``prefill_step`` at B 2, S 2048; flash
+   attention must launch once per layer per prefill and decode attention
+   once per layer per decode step.  Ten warm decode steps run under the
+   profiler (the card's busy share and its time by kind).  Then the same
+   config at depth 2 in fp32, weights made once on the CPU: 8 requests
+   through the engine on the card and on the CPU give identical tokens,
+   and the prefill and decode logits agree within 1e-4 x max|logit|, also
+   against the plain ``_sdpa`` sites the CPU runs with the switch off.
+   Phase 5 times both attention kernels at the engine's decode shape and
+   at the ``prefill_step`` shape.
 
 Launch counters are zeroed just before each run of a path (serve fp32,
-serve int8, train, probe) and read just after; every kernel must have
+serve int8, train, probe, lm) and read just after; every kernel must have
 launched on its path.  The last lines are a ``details:`` line (every
 measurement as JSON), the ``kernels`` JSON, the card's name and power
 limit, and ``{"ok": true, "device": ...}``.
@@ -64,6 +81,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PEAK_FP32_FLOPS = 67e12        # H100 SXM, fp32 on the CUDA cores
+PEAK_BF16_FLOPS = 989e12       # H100 SXM, bf16 dense tensor cores
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM, HBM3
 TOL_MLP = 1e-4                 # lane-MLP forward vs plain, max-abs
 TOL_GRAD = 1e-5                # lane-MLP backward vs plain, relative
@@ -108,6 +126,21 @@ SCENARIO = dict(dataset="mimic3", active_features=5, aligned=10000,
 TRAIN = dict(epochs=2, requests=500)
 # run_apcvfl's training stages and the roles each one trains
 STAGES = {"g1": ("g1_active", "g1_passive"), "g2": ("g2",), "g3": ("g3",)}
+# attention vs plain per input dtype: |got - want| <= tol + tol * |want|,
+# the reference's allclose bounds (tests/test_kernels.py, atol = rtol)
+TOL_ATTN = {"float32": 2e-5, "bfloat16": 3e-2}
+# card vs CPU logits of the depth-2 decoder, relative to max|logit|
+TOL_LM = 1e-4
+FLASH_SHAPES = ((1, 128, 16, 8, 128), (2, 2048, 16, 8, 128),
+                (1, 32, 16, 8, 128), (1, 200, 4, 2, 64))   # (B, S, H, K, hd)
+FLASH_MASKS = ((True, 0), (True, 128), (False, 0))           # (causal, window)
+DECODE_W = (64, 1024)
+# the LM serving cell: internlm2-1.8b, full width
+LM = dict(arch="internlm2-1.8b", batch=8, slots=1024, prefill_len=128,
+          requests=32, prompt=(16, 129), max_new=64)
+LM_PREFILL = (2, 2048)                  # prefill_step's (B, S)
+LM_CHECK = dict(layers=2, requests=8, slots=256, max_new=16, steps=8)
+CARD = "cuda"                           # the device the LM phase serves on
 
 
 def log(msg: str) -> None:
@@ -232,6 +265,7 @@ def phase_check() -> dict:
             _require(e <= TOL_INT8, (name, B, e))
             err["int8_matmul"] = max(err["int8_matmul"], e)
     check_training_kernels(gen, err)
+    check_attention_kernels(gen, err)
     return err, check_wrappers(gen)
 
 
@@ -372,6 +406,97 @@ def check_training_kernels(gen, err: dict) -> None:
         log(f"probe n={n} C={C} lanes={k}: max|err| {e:.3e}")
         _require(e <= TOL_PROBE, (n, e))
         err["probe"] = max(err["probe"], e)
+
+
+def _attn_dtypes():
+    import torch
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _slot_pos(W: int, pos: int):
+    """Slots 0..pos written, a few empty ones inside the prefix, the rest
+    empty (-1)."""
+    import torch
+    sp = np.where(np.arange(W) <= pos, np.arange(W), -1).astype(np.int32)
+    sp[5:9] = -1
+    return torch.from_numpy(sp).cuda()
+
+
+def _within(got, want, tol: float) -> bool:
+    """``np.testing.assert_allclose(got, want, atol=tol, rtol=tol)``."""
+    return bool(((got - want).abs() <= tol + tol * want.abs()).all())
+
+
+def check_attention_kernels(gen, err: dict) -> None:
+    """The flash-attention and decode-attention wrappers, as the model
+    calls them, against their plain versions on the same card tensors
+    (part of phase 2); each wrapper call must count one launch."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    for name in ("flash_attention", "decode_attention"):
+        for dt in TOL_ATTN:
+            err[f"{name}/{dt}"] = 0.0
+    calls = {"flash_attention": 0, "decode_attention": 0}
+    ops.reset_launches()
+    for dname, dt in _attn_dtypes().items():
+        for B, S, H, K, hd in FLASH_SHAPES:
+            q = _rand(gen, (B, S, H, hd)).to(dt)
+            k, v = (_rand(gen, (B, S, K, hd)).to(dt) for _ in range(2))
+            for causal, window in FLASH_MASKS:
+                got = ops.flash_attention(q, k, v, causal=causal,
+                                          window=window)
+                calls["flash_attention"] += 1
+                want = ref.flash_attention_model(q, k, v, causal=causal,
+                                                 window=window)
+                torch.cuda.synchronize()
+                e = _maxerr(got.float(), want.float())
+                log(f"flash_attention {dname} B={B} S={S} H={H} K={K} "
+                    f"hd={hd} causal={causal} window={window}: max|err| "
+                    f"{e:.3e}")
+                _require(got.dtype == dt and _within(
+                    got.float(), want.float(), TOL_ATTN[dname]),
+                    ("flash", dname, B, S, causal, window, e))
+                key = f"flash_attention/{dname}"
+                err[key] = max(err[key], e)
+            del q, k, v, got, want
+        B, H, K, hd = LM["batch"], 16, 8, 128
+        for W in DECODE_W:
+            pos = W * 3 // 4
+            sp = _slot_pos(W, pos)
+            q = _rand(gen, (B, H, hd)).to(dt)
+            kc, vc = (_rand(gen, (B, W, K, hd)).to(dt) for _ in range(2))
+            for window in (0, 48):
+                got = ops.decode_attention(q, kc, vc, sp, pos,
+                                           window=window)
+                calls["decode_attention"] += 1
+                want = ref.decode_attention_cache(q, kc, vc, sp, pos,
+                                                  window=window)
+                torch.cuda.synchronize()
+                e = _maxerr(got.float(), want.float())
+                log(f"decode_attention {dname} B={B} W={W} pos={pos} "
+                    f"window={window}: max|err| {e:.3e}")
+                _require(got.dtype == dt and _within(
+                    got.float(), want.float(), TOL_ATTN[dname]),
+                    ("decode", dname, W, window, e))
+                key = f"decode_attention/{dname}"
+                err[key] = max(err[key], e)
+        # every slot empty: the row is 0 in the kernel and its plain version
+        W0 = DECODE_W[0]
+        sp = torch.full((W0,), -1, dtype=torch.int32, device="cuda")
+        kc, vc = kc[:, :W0], vc[:, :W0]
+        got = ops.decode_attention(q, kc, vc, sp, 10)
+        calls["decode_attention"] += 1
+        want = ref.decode_attention_cache(q, kc, vc, sp, 10)
+        torch.cuda.synchronize()
+        log(f"decode_attention {dname} every slot empty: max|out| "
+            f"{float(got.float().abs().max()):.3e}")
+        _require(not bool((got != 0).any()) and not bool((want != 0).any()),
+                 ("decode, every slot empty", dname))
+    counts = dict(ops.LAUNCHES)
+    log(f"attention wrappers' launches {counts}, calls {calls}")
+    _require(counts == {k: calls.get(k, 0) for k in counts}, (counts, calls))
+    for name in ("flash_attention", "decode_attention"):
+        err[name] = err[f"{name}/float32"]
 
 
 def make_bundle(seed: int = 0):
@@ -634,8 +759,9 @@ def graph_ms(fn, iters: int = 50, reps: int = 5) -> float:
     return t0.elapsed_time(t1) / (reps * iters)
 
 
-def _bound_ms(flops: float, nbytes: float) -> tuple:
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+def _bound_ms(flops: float, nbytes: float,
+              peak: float = PEAK_FP32_FLOPS) -> tuple:
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
@@ -676,20 +802,23 @@ def phase_time() -> dict:
             library=lambda a=(x, w_q, scale, b), s=sel: s(torch.addmm(
                 a[3], a[0], a[1].float() * a[2]))))
     sets.update(_training_kernel_sets(gen))
+    sets.update(_attention_kernel_sets(gen))
     res = {}
     for kname, items in sets.items():
         per_shape = []
+        peak = items[0].get("peak", PEAK_FP32_FLOPS)
         for it in items:
             row = {"shape": it["shape"]}
             for which in ("kernel", "plain", "library"):
                 row[f"{which}_ms"] = (None if it[which] is None
-                                      else graph_ms(it[which]))
-            row["bound_ms"], row["bound_by"] = _bound_ms(it["flops"],
-                                                         it["bytes"])
+                                      else graph_ms(it[which],
+                                                    it.get("iters", 50)))
+            row["bound_ms"], row["bound_by"] = _bound_ms(
+                it["flops"], it["bytes"], peak)
             per_shape.append(row)
             log(f"{kname} {row}")
         bound, by = _bound_ms(sum(i["flops"] for i in items),
-                              sum(i["bytes"] for i in items))
+                              sum(i["bytes"] for i in items), peak)
         lib = [r["library_ms"] for r in per_shape]
         res[kname] = {
             "ms": sum(r["kernel_ms"] for r in per_shape),
@@ -768,6 +897,55 @@ def _training_kernel_sets(gen) -> dict:
         kernel=lambda: probe.launch(*pa),
         plain=lambda: ref.probe_grad_ref(*pa),
         library=lambda: _library_probe(*pa))]
+    return sets
+
+
+def _attention_kernel_sets(gen) -> dict:
+    """Timing sets of the attention kernels in bf16 at the LM cell's
+    shapes (internlm2-1.8b: H 16, K 8, hd 128): flash attention at
+    ``prefill_step``'s B 2, S 2048 (causal) and, apart, at the engine's
+    one-prompt prefill (B 1, S 128); decode attention at the engine's batch
+    of 8 against its 1024-slot cache with slots 0..511 written.  Operations
+    count the pairs the mask keeps; bytes count q, k, v and out once (for
+    decode, the written slots' K/V rows)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    bf16, H, K, hd = torch.bfloat16, 16, 8, 128
+    sets = {}
+    for key, (B, S) in (("flash_attention", LM_PREFILL),
+                        ("flash_attention_engine_prefill",
+                         (1, LM["prefill_len"]))):
+        q = _rand(gen, (B, S, H, hd)).to(bf16)
+        k, v = (_rand(gen, (B, S, K, hd)).to(bf16) for _ in range(2))
+        sets[key] = [dict(
+            shape=f"B={B} S={S} H={H} K={K} hd={hd} causal bf16",
+            flops=4.0 * B * H * hd * S * (S + 1) / 2,
+            bytes=2.0 * (2 * B * S * H * hd + 2 * B * S * K * hd),
+            peak=PEAK_BF16_FLOPS, iters=10,
+            kernel=lambda a=(q, k, v): ops.flash_attention(*a, causal=True),
+            plain=lambda a=(q, k, v): ref.flash_attention_model(
+                *a, causal=True),
+            library=lambda a=(q, k, v): F.scaled_dot_product_attention(
+                *(t.transpose(1, 2) for t in a), is_causal=True,
+                enable_gqa=True))]
+    B, W, pos = LM["batch"], LM["slots"], LM["slots"] // 2 - 1
+    sp = torch.where(torch.arange(W) <= pos, torch.arange(W), -1).to(
+        torch.int32).cuda()
+    valid = int((sp >= 0).sum())
+    q = _rand(gen, (B, H, hd)).to(bf16)
+    kc, vc = (_rand(gen, (B, W, K, hd)).to(bf16) for _ in range(2))
+    mask = (sp >= 0) & (sp <= pos)
+    sets["decode_attention"] = [dict(
+        shape=f"B={B} W={W} valid={valid} H={H} K={K} hd={hd} bf16",
+        flops=4.0 * B * H * hd * valid,
+        bytes=2.0 * (2 * B * H * hd + 2 * B * valid * K * hd) + 4.0 * W,
+        peak=PEAK_BF16_FLOPS,
+        kernel=lambda: ops.decode_attention(q, kc, vc, sp, pos),
+        plain=lambda: ref.decode_attention_cache(q, kc, vc, sp, pos),
+        library=lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+            attn_mask=mask[None, None, None], enable_gqa=True))]
     return sets
 
 
@@ -911,6 +1089,228 @@ def phase_limit(train: dict) -> dict:
             "cpu_spread": spread, "faults": faults}
 
 
+def _engine_prompts(reqs, P: int) -> np.ndarray:
+    """The requests' prompts cut or right-padded (repeating the last token)
+    to ``P``, as the engine prefills them."""
+    rows = []
+    for r in reqs:
+        p = np.asarray(r.prompt, np.int32)[:P]
+        rows.append(np.concatenate([p, np.full(P - len(p), p[-1], np.int32)]))
+    return np.stack(rows)
+
+
+def phase_lm() -> dict:
+    """The dense decoder's serving path on the card (phase 7): the full
+    cell through the CLI, ``prefill_step``, then depth 2 against the
+    CPU."""
+    import time
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serve.decode import prefill_step
+    log(f"=== phase 7: serve {LM['arch']} at full width and depth ===")
+    cfg = get_config(LM["arch"]).with_(use_flash_kernel=True)
+    L = cfg.n_layers
+    res = {"launches": {k: 0 for k in ops.LAUNCHES}}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "lm.json")
+        argv = ["--arch", LM["arch"], "--no-smoke", "--device", CARD,
+                "--batch", str(LM["batch"]), "--slots", str(LM["slots"]),
+                "--prefill-len", str(LM["prefill_len"]),
+                "--requests", str(LM["requests"]),
+                "--prompt-len", *map(str, LM["prompt"]),
+                "--max-new", str(LM["max_new"]), "--out", out]
+        ops.reset_launches()
+        rc = serve.main(argv)
+        counts = dict(ops.LAUNCHES)
+        _require(rc == 0, rc)
+        with open(out) as fh:
+            stats = json.load(fh)
+    log(f"lm serve: {stats} (launches {counts})")
+    _require(stats["n_layers"] == L and stats["dtype"] == "bfloat16"
+             and stats["completed"] == LM["requests"]
+             and stats["tokens_out"] == LM["requests"] * LM["max_new"],
+             stats)
+    _require(counts["flash_attention"] == L * stats["prefills"],
+             f"flash launches {counts['flash_attention']}, expected "
+             f"{L} x {stats['prefills']} prefills")
+    _require(counts["decode_attention"] == L * stats["decode_steps"],
+             f"decode launches {counts['decode_attention']}, expected "
+             f"{L} x {stats['decode_steps']} steps")
+    res["serve"] = stats
+    res["serve_launches"] = counts
+    res["launches_per_decode_step"] = (counts["decode_attention"]
+                                       / stats["decode_steps"])
+
+    # prefill_step at B 2, S 2048 on the same weights
+    params = serve.build_params(cfg, device=CARD)
+    B, S = LM_PREFILL
+    toks = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)).to(CARD)
+    walls = []
+    ops.reset_launches()
+    for _ in range(2):                 # the first call also warms cuBLAS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg = prefill_step(params, cfg, {"tokens": toks})
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    pcounts = dict(ops.LAUNCHES)
+    _require(tuple(lg.shape) == (B, cfg.vocab_size) and lg.dtype
+             == torch.bfloat16 and bool(torch.isfinite(lg).all()),
+             (tuple(lg.shape), lg.dtype))
+    _require(pcounts["flash_attention"] == 2 * L, pcounts)
+    res["prefill_step"] = {"B": B, "S": S, "ms": walls,
+                           "launches": pcounts}
+    log(f"prefill_step B={B} S={S}: {walls} ms (launches {pcounts})")
+    for k in ops.LAUNCHES:
+        res["launches"][k] = counts[k] + pcounts[k]
+    res["decode_profile"] = _profile_decode(params, cfg)
+    del params, lg
+    torch.cuda.empty_cache()
+    res["check"] = lm_card_vs_cpu()
+    return res
+
+
+def _profile_decode(params, cfg, steps: int = 10) -> dict:
+    """Decode steps of the LM cell's engine (8 requests in flight, warm):
+    ``steps`` timed by the engine, then ``steps`` under the profiler, with
+    the card's busy share of the wall and its time by kind: the decode
+    kernel, GEMMs (cuBLAS), and the rest (PyTorch's elementwise, copy and
+    reduction kernels)."""
+    import time
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import Engine
+    eng = Engine(params, cfg, batch=LM["batch"], n_slots=LM["slots"],
+                 prefill_len=LM["prefill_len"], device=CARD)
+    for r in serve.make_requests(LM["batch"], cfg.vocab_size,
+                                 lo=LM["prompt"][0], hi=LM["prompt"][1],
+                                 max_new=LM["max_new"]):
+        eng.submit(r)
+    for _ in range(3 + steps):       # the prefills, then warm decode steps
+        eng.step()
+    unprofiled = eng.step_ms[-steps:]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kinds = {"decode_attention": 0.0, "gemm": 0.0, "other": 0.0}
+    names: dict = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        low = e.name.lower()
+        kind = ("decode_attention" if "decode_kernel" in low else
+                "gemm" if any(t in low for t in ("gemm", "gemv", "cutlass",
+                                                 "xmma", "nvjet")) else
+                "other")
+        kinds[kind] += us
+        names[e.name[:80]] = names.get(e.name[:80], 0.0) + us
+    busy = sum(kinds.values())
+    out = {"steps": steps, "step_ms_unprofiled": unprofiled,
+           "wall_ms_per_step_profiled": wall_us / steps / 1e3,
+           "device_ms_per_step": {k: v / steps / 1e3
+                                  for k, v in kinds.items()},
+           "device_busy_share": busy / wall_us,
+           "top": sorted(((v / steps / 1e3, k) for k, v in names.items()),
+                         reverse=True)[:8]}
+    log(f"decode profile: {out}")
+    return out
+
+
+def lm_card_vs_cpu() -> dict:
+    """internlm2-1.8b at full width, depth 2, fp32, weights made once on
+    the CPU and copied to the card: the prefill and decode logits agree
+    within TOL_LM x max|logit| and the engine's tokens are identical."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import decoder_prefill_with_cache
+    from repro_torch.serve.engine import Engine
+    from repro_torch.tree import tree_map
+    c = LM_CHECK
+    cfg = get_config(LM["arch"]).with_(n_layers=c["layers"], dtype="float32",
+                                       use_flash_kernel=True)
+    cpu = serve.build_params(cfg, device="cpu")
+    card = tree_map(lambda t: t.to(CARD), cpu)
+    reqs = lambda: serve.make_requests(c["requests"], cfg.vocab_size,
+                                       lo=LM["prompt"][0], hi=LM["prompt"][1],
+                                       max_new=c["max_new"])
+    P = LM["prefill_len"]
+    toks = torch.from_numpy(_engine_prompts(reqs(), P))
+    runs = {}
+    ops.reset_launches()
+    for dev, p in ((CARD, card), ("cpu", cpu)):
+        with torch.no_grad():
+            lg, cache = decoder_prefill_with_cache(p, cfg, toks.to(dev),
+                                                   c["slots"])
+            logits = [lg.cpu()]
+            tok = torch.argmax(lg, -1)
+            for t in range(c["steps"]):
+                lg, cache = M.decode(p, cfg, tok, cache, P + t)
+                logits.append(lg.cpu())
+                tok = torch.argmax(lg, -1)
+        runs[dev] = logits
+    direct = dict(ops.LAUNCHES)
+    _require(direct["flash_attention"] == cfg.n_layers and
+             direct["decode_attention"] == cfg.n_layers * c["steps"], direct)
+    rel = []
+    for got, want in zip(runs[CARD], runs["cpu"]):
+        _require(bool(torch.isfinite(got).all()), "card logits not finite")
+        _require(torch.equal(torch.argmax(got, -1), torch.argmax(want, -1)),
+                 "card and cpu disagree on a greedy token")
+        rel.append(float((got - want).abs().max() / want.abs().max()))
+    log(f"depth-2 card vs cpu logits, max|d| / max|logit| per step: {rel}")
+    _require(max(rel) <= TOL_LM, rel)
+    # the card's kernels against the reference's plain _sdpa sites (the
+    # switch off, so the CPU runs _sdpa): prefill and the first decode step
+    with torch.no_grad():
+        plain = cfg.with_(use_flash_kernel=False)
+        lg, cache = decoder_prefill_with_cache(cpu, plain, toks, c["slots"])
+        lg2, _ = M.decode(cpu, plain, torch.argmax(lg, -1), cache, P)
+    routing = [float((a - b).abs().max() / b.abs().max())
+               for a, b in zip(runs[CARD][:2], (lg, lg2))]
+    log(f"depth-2, the card's kernels vs the plain _sdpa sites on the cpu, "
+        f"max|d| / max|logit| (prefill, decode): {routing}")
+    _require(max(routing) <= TOL_LM, routing)
+    gens = {}
+    for dev, p in ((CARD, card), ("cpu", cpu)):
+        eng = Engine(p, cfg, batch=c["requests"], n_slots=c["slots"],
+                     prefill_len=P, device=dev)
+        rs = reqs()
+        for r in rs:
+            eng.submit(r)
+        ops.reset_launches()
+        st = eng.run()
+        if dev == CARD:
+            eng_counts = dict(ops.LAUNCHES)
+        gens[dev] = ([r.generated for r in rs], st)
+    _require(gens[CARD][0] == gens["cpu"][0],
+             "card and cpu engines generated different tokens")
+    _require(gens[CARD][1] == gens["cpu"][1], (gens[CARD][1],
+                                                 gens["cpu"][1]))
+    _require(eng_counts["flash_attention"] > 0
+             and eng_counts["decode_attention"] > 0, eng_counts)
+    log(f"depth-2 engines: identical tokens ({gens['cpu'][1]}); card "
+        f"launches {eng_counts}")
+    return {"layers": c["layers"], "logit_rel_err": rel,
+            "max_logit_rel_err": max(rel), "routing_rel_err": routing,
+            "tokens_identical": True,
+            "stats": gens["cpu"][1].__dict__, "launches": eng_counts,
+            "direct_launches": direct}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -919,14 +1319,32 @@ def main() -> int:
         return 1
     from repro_torch.kernels import ops
 
+    import time
+    t0 = time.perf_counter()
+    elapsed = {}
+
+    def done(phase: str) -> None:
+        elapsed[phase] = time.perf_counter() - t0
+        log(f"--- {phase} done at {elapsed[phase]:.1f} s")
+
     phase_build()
+    done("build")
     errs, wrappers = phase_check()
+    done("check")
     serve = phase_serve()
+    done("serve")
     train = phase_train()
+    done("train")
     timing = phase_time()
+    done("time")
     train_time = phase_train_time(train["card"])
+    done("train_time")
     turns = phase_turns()
+    done("turns")
     limit = phase_limit(train)
+    done("limit")
+    lm = phase_lm()
+    done("lm")
 
     csrc = "src/repro_torch/kernels/csrc/"
     srcs = {"lane_mlp_fwd": ("lane_mlp_fwd.cu", "lane_mlp.py:57"),
@@ -934,11 +1352,16 @@ def main() -> int:
             "int8_matmul": ("int8_matmul.cu", "int8_matmul.py:35"),
             "distill_fwd": ("distill_loss.cu", "distill_loss.py:31"),
             "distill_bwd": ("distill_loss.cu", "distill_loss.py:45"),
-            "probe": ("probe.cu", "probe.py:35")}
+            "probe": ("probe.cu", "probe.py:35"),
+            "flash_attention": ("flash_attention.cu",
+                                "flash_attention.py:28"),
+            "decode_attention": ("decode_attention.cu",
+                                 "decode_attention.py:30")}
     kernels = []
     for name in ops.LAUNCHES:
         t = timing[name]
-        launches = serve["launches"][name] + train["launches"][name]
+        launches = (serve["launches"][name] + train["launches"][name]
+                    + lm["launches"][name])
         _require(launches > 0, f"{name} never launched on its path")
         kernels.append({
             "name": name, "route": "cuda", "source": csrc + srcs[name][0],
@@ -949,6 +1372,8 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
         if name == "lane_mlp_bwd":          # its check's bound is relative
             kernels[-1]["max_rel_err"] = errs["lane_mlp_bwd_rel"]
+        if "attention" in name:             # fp32 above, bf16 here
+            kernels[-1]["max_abs_err_bf16"] = errs[f"{name}/bfloat16"]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -957,9 +1382,15 @@ def main() -> int:
                                            "latency_ms_p99")}
               for m in ("none", "int8")}
     log(f"stream (mimic3, {SCENARIO['requests']} requests): {stream}")
+    log(f"lm ({LM['arch']}, bf16, {LM['requests']} requests): " + json.dumps(
+        {k: lm["serve"][k] for k in ("tokens_per_s", "step_ms_p50",
+                                     "step_ms_p99", "prefill_ms_p50")}
+        | {"launches_per_decode_step": lm["launches_per_decode_step"],
+           "prefill_step_ms": lm["prefill_step"]["ms"]}))
     log("details: " + json.dumps({"timing": timing, "serve": serve,
                                   "train": train, "train_time": train_time,
                                   "turns": turns, "g3_limit": limit,
+                                  "lm": lm, "elapsed_s": elapsed,
                                   "wrappers": wrappers,
                                   "torch": torch.__version__,
                                   "cuda": torch.version.cuda}))

@@ -8,6 +8,10 @@ through the kernels (``reset_launches`` zeroes it).  ``lane_mlp_bwd``
 counts one per backward, which is a pair of launches (the rows pass, then
 the weight partials).
 
+The attention wrappers take the model's layouts and grouped-query heads
+as they are (k/v with K kv heads, K dividing H): the kernels map q head
+``h`` to kv head ``h // (H // K)``, and only the plain path expands them.
+
 The two differentiable kernels carry a ``torch.autograd.Function`` whose
 backward is the closed-form backward kernel (on the CPU its plain
 version), as the reference's ``jax.custom_vjp`` does: ``LaneMLP2`` for the
@@ -20,7 +24,8 @@ import torch
 from repro_torch.kernels import ref
 
 LAUNCHES = {"lane_mlp_fwd": 0, "lane_mlp_bwd": 0, "int8_matmul": 0,
-            "distill_fwd": 0, "distill_bwd": 0, "probe": 0}
+            "distill_fwd": 0, "distill_bwd": 0, "probe": 0,
+            "flash_attention": 0, "decode_attention": 0}
 
 
 def reset_launches() -> None:
@@ -225,4 +230,48 @@ def int8_matmul(x, w_q, scale, b, *, act: str = "none"):
     from repro_torch.kernels import int8_matmul as i8
     out = i8.launch(x, w_q, scale, b, act=act)
     LAUNCHES["int8_matmul"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q (B, S, H, hd), k/v (B, S, K, hd) [model layout] -> (B, S, H, hd):
+    one flash-attention launch on CUDA; on the CPU
+    ``ref.flash_attention_model`` (``flash_attention_ref`` with the kv heads
+    expanded)."""
+    H = q.shape[2]
+    if k.shape[2] == 0 or H % k.shape[2]:
+        raise ValueError(f"flash_attention: {k.shape[2]} kv heads do not "
+                         f"divide {H} heads")
+    if not _on_cuda(q, "flash_attention"):
+        return ref.flash_attention_model(q, k, v, causal=causal,
+                                         window=window)
+    from repro_torch.kernels import flash_attention as fa
+    out = fa.launch(q.contiguous(), k.contiguous(), v.contiguous(),
+                    causal=causal, window=window)
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def decode_attention(q, k, v, slot_pos, pos: int, *, window: int = 0):
+    """One-token cache attention: q (B, H, hd), k/v (B, W, K, hd) [the
+    cache's layout], slot_pos (W,) int32, pos a host int -> (B, H, hd).
+    One decode-attention launch on CUDA; on the CPU
+    ``ref.decode_attention_cache`` (``decode_attention_ref`` over (B*H, W,
+    hd) rows)."""
+    H = q.shape[1]
+    if k.shape[2] == 0 or H % k.shape[2]:
+        raise ValueError(f"decode_attention: {k.shape[2]} kv heads do not "
+                         f"divide {H} heads")
+    if not _on_cuda(q, "decode_attention"):
+        return ref.decode_attention_cache(q, k, v, slot_pos, pos,
+                                          window=window)
+    from repro_torch.kernels import decode_attention as da
+    out = da.launch(q.contiguous(), k.contiguous(), v.contiguous(),
+                    slot_pos.to(torch.int32).contiguous(), int(pos),
+                    window=window)
+    LAUNCHES["decode_attention"] += 1
     return out

@@ -1,13 +1,16 @@
 """Plain PyTorch versions of the kernels in this package: what a CPU
 tensor runs, and what the CUDA kernels are held against on the card.
-Counterparts of ``repro.kernels.ref`` and of the closed-form backward
-passes in ``repro.kernels.lane_mlp`` / ``distill_loss`` / ``probe``.
+Counterparts of ``repro.kernels.ref``, of the closed-form backward
+passes in ``repro.kernels.lane_mlp`` / ``distill_loss`` / ``probe``, and of
+the masked softmax the reference's tests hold ``decode_attention`` to.
 
 Each backward here is written out in closed form, as its Pallas kernel
 computes it, and is not autograd of the forward.  Every function takes an
 optional leading lane axis: weights ``(L, d_in, d_out)`` with biases
 ``(L, d_out)`` and inputs ``(L, B, d_in)``, or the unstacked shapes."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -107,3 +110,77 @@ def probe_grad_ref(w, b, x, y, rwn):
 def int8_matmul_ref(x, w_q, scale, b):
     """Weight-only int8: dequantize per output channel, then matmul."""
     return x @ (w_q.to(torch.float32) * scale[None, :]) + b
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
+    """q/k/v (B, H, S, hd) -> (B, H, S, hd), softmax in fp32
+    (``repro.kernels.ref.flash_attention_ref``): mask ``j <= i`` when
+    causal and ``i - j < window`` when ``window`` > 0; the probabilities
+    are cast to q's dtype before the product with v, as the reference."""
+    S, hd = q.shape[2], q.shape[-1]
+    scores = torch.einsum("bhsd,bhtd->bhst", q, k).to(torch.float32)
+    scores = scores / math.sqrt(hd)
+    i = torch.arange(S, device=q.device)[:, None]
+    j = torch.arange(S, device=q.device)[None, :]
+    ok = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= j <= i
+    if window:
+        ok &= (i - j) < window
+    scores = torch.where(ok, scores, -1e30)
+    # masked pairs weigh exactly 0, so a row with no pair left gives 0, as
+    # the kernels do (p = 0 there, out = acc / max(l, 1e-30))
+    probs = torch.where(ok, torch.softmax(scores, dim=-1), 0.0)
+    return torch.einsum("bhst,bhtd->bhsd", probs.to(q.dtype), v)
+
+
+def decode_attention_ref(q, k, v, slot_pos, pos, *, window: int = 0):
+    """q (BH, hd) one query row per batch*head, k/v (BH, W, hd), slot_pos
+    (W,) int, pos an int: the masked softmax the reference's tests hold
+    ``decode_attention`` to (slots with ``slot_pos < 0``, ``> pos`` or, with
+    a window, ``<= pos - window`` are masked), in fp32, out in q's
+    dtype.  A row whose slots are all masked is 0, as in the reference's
+    Pallas kernel."""
+    hd = q.shape[-1]
+    s = torch.einsum("bd,bwd->bw", q.to(torch.float32),
+                     k.to(torch.float32)) / math.sqrt(hd)
+    ok = (slot_pos >= 0) & (slot_pos <= pos)
+    if window:
+        ok &= slot_pos > pos - window
+    s = torch.where(ok, s, -1e30)
+    # masked slots weigh exactly 0: with every slot masked the row is 0, as
+    # in the kernels (p = 0 there, out = acc / max(l, 1e-30))
+    p = torch.where(ok, torch.softmax(s, dim=-1), 0.0)
+    out = torch.einsum("bw,bwd->bd", p, v.to(torch.float32))
+    return out.to(q.dtype)
+
+
+def expand_heads(t: torch.Tensor, H: int) -> torch.Tensor:
+    """(B, T, K, hd) -> (B, T, H, hd), each kv head repeated H // K
+    times (the reference's ``models.attention._gqa_expand``)."""
+    B, T, K, hd = t.shape
+    if K == H:
+        return t
+    return t[:, :, :, None, :].expand(B, T, K, H // K, hd).reshape(
+        B, T, H, hd)
+
+
+def flash_attention_model(q, k, v, *, causal: bool = True, window: int = 0):
+    """``flash_attention_ref`` in the model's layout: q (B, S, H, hd), k/v
+    (B, S, K, hd) with K dividing H -> (B, S, H, hd)."""
+    H = q.shape[2]
+    qt, kt, vt = (t.transpose(1, 2) for t in
+                  (q, expand_heads(k, H), expand_heads(v, H)))
+    return flash_attention_ref(qt, kt, vt, causal=causal,
+                               window=window).transpose(1, 2)
+
+
+def decode_attention_cache(q, k, v, slot_pos, pos, *, window: int = 0):
+    """``decode_attention_ref`` on the cache's layout: q (B, H, hd), k/v
+    (B, W, K, hd) with K dividing H -> (B, H, hd)."""
+    B, H, hd = q.shape
+    W = k.shape[1]
+    kf, vf = (expand_heads(t, H).transpose(1, 2).reshape(B * H, W, hd)
+              for t in (k, v))
+    return decode_attention_ref(q.reshape(B * H, hd), kf, vf, slot_pos, pos,
+                                window=window).reshape(B, H, hd)

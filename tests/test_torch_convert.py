@@ -55,6 +55,26 @@ def test_to_torch_makes_floats_fp32_and_keeps_integer_leaves():
     assert t["ids"].dtype == torch.int64 and int(t["ids"][1]) == 1 << 40
 
 
+def test_to_torch_float_dtype_keeps_bf16_leaves_bit_for_bit():
+    """``float_dtype=None`` keeps each floating leaf's dtype: an LM's bf16
+    weights (``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses)
+    cross as ``torch.bfloat16`` beside fp32 norm scales; the default still
+    makes floats fp32."""
+    import ml_dtypes
+    w = np.asarray([[1.5, -2.25], [3e-3, 7.0]], ml_dtypes.bfloat16)
+    tree = {"w": w, "scale": np.ones(2, np.float32),
+            "ids": np.arange(3, dtype=np.int64)}
+    t = convert.to_torch(tree, device="cpu", float_dtype=None)
+    assert t["w"].dtype == torch.bfloat16
+    assert t["scale"].dtype == torch.float32
+    assert t["ids"].dtype == torch.int64
+    assert np.array_equal(t["w"].view(torch.int16).numpy().view(np.uint16),
+                          w.view(np.uint16))
+    assert convert.to_torch(tree, device="cpu")["w"].dtype == torch.float32
+    assert convert.to_torch(tree, device="cpu", float_dtype=torch.bfloat16
+                            )["scale"].dtype == torch.bfloat16
+
+
 @pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
 def test_checkpoints_cross_packages(tmp_path, direction):
     tree = {"model": _jax_params()["g1_active"],

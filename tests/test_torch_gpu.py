@@ -2,7 +2,7 @@
 card, at the serving and training paths' shapes, within the reference's
 pinned bounds (``benchmarks/kernelbench.py``: 1e-4 lane-MLP forward,
 1e-5 relative lane-MLP gradients, 1e-5 int8 matmul and Eq. 5 rows, 1e-4
-probe step).
+probe step; ``tests/test_kernels.py``: 2e-5 fp32 and 3e-2 bf16 attention).
 
 Marked ``gpu``; each test decides inside itself whether a card exists and
 skips without one.  Imports nothing of JAX, so it runs on a machine that
@@ -202,4 +202,127 @@ def test_wrappers_count_launches_on_card():
     assert rows.shape == (16,)
     assert ops.LAUNCHES == {"lane_mlp_fwd": 2, "lane_mlp_bwd": 1,
                             "int8_matmul": 1, "distill_fwd": 1,
-                            "distill_bwd": 0, "probe": 1}
+                            "distill_bwd": 0, "probe": 1,
+                            "flash_attention": 0, "decode_attention": 0}
+
+
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+
+def _allclose(got, want, tol):
+    """``assert_allclose(got, want, atol=tol, rtol=tol)``, the reference's
+    attention bounds (tests/test_kernels.py)."""
+    torch.cuda.synchronize()
+    got, want = got.float().cpu(), want.float().cpu()
+    return bool(((got - want).abs() <= tol + tol * want.abs()).all())
+
+
+def _attn_inputs(rng, dev, dtype, *shapes):
+    return [_randn(rng, *s).to(dev, dtype) for s in shapes]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain_on_card(dtype):
+    """The kernel against its plain version on the same card tensors, at
+    the serving shapes (internlm2-1.8b heads: H 16, K 8, hd 128) and a
+    ragged S with small heads, causal with and without a window and full;
+    the reference's bounds (tests/test_kernels.py)."""
+    dev = _card()
+    rng = np.random.RandomState(7)
+    for B, S, H, K, hd in ((1, 128, 16, 8, 128), (1, 32, 16, 8, 128),
+                           (1, 200, 4, 2, 64), (2, 77, 4, 4, 32)):
+        q, k, v = _attn_inputs(rng, dev, dtype, (B, S, H, hd),
+                               (B, S, K, hd), (B, S, K, hd))
+        for causal, window in ((True, 0), (True, 48), (False, 0)):
+            got = ops.flash_attention(q, k, v, causal=causal, window=window)
+            want = ops.flash_attention(q.cpu(), k.cpu(), v.cpu(),
+                                       causal=causal, window=window)
+            assert got.dtype == dtype
+            assert _allclose(got, want, ATTN_TOL[dtype]), \
+                (B, S, H, K, hd, causal, window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_matches_plain_on_card(dtype):
+    dev = _card()
+    rng = np.random.RandomState(8)
+    B, H, K, hd = 2, 16, 8, 128
+    for W, pos in ((64, 40), (1024, 700)):
+        q, kc, vc = _attn_inputs(rng, dev, dtype, (B, H, hd),
+                                 (B, W, K, hd), (B, W, K, hd))
+        sp = np.where(np.arange(W) <= pos, np.arange(W), -1)
+        sp[5:9] = -1                           # empty slots in the prefix
+        sp = torch.from_numpy(sp.astype(np.int32))
+        for window in (0, 48):
+            got = ops.decode_attention(q, kc, vc, sp.to(dev), pos,
+                                       window=window)
+            want = ops.decode_attention(q.cpu(), kc.cpu(), vc.cpu(), sp, pos,
+                                        window=window)
+            assert got.dtype == dtype
+            assert _allclose(got, want, ATTN_TOL[dtype]), (W, window)
+
+
+@pytest.mark.gpu
+def test_decoder_serving_path_launches_attention_kernels_on_card():
+    """Prefill and decode of a smoke decoder with the switch on: one flash
+    launch per layer per prefill, one decode launch per layer per step,
+    and the card's logits as the CPU's."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.serve import build_params
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import tree_map
+    dev = _card()
+    cfg = get_smoke("internlm2-1.8b").with_(use_flash_kernel=True)
+    params = build_params(cfg, seed=0, device="cpu")
+    gpu_params = tree_map(lambda t: t.to(dev), params)
+    toks = torch.from_numpy(np.random.RandomState(9).randint(
+        0, cfg.vocab_size, (2, 16)).astype(np.int32))
+    ops.reset_launches()
+    runs = []
+    for p, d in ((gpu_params, dev), (params, "cpu")):
+        lg, cache = tr.decoder_prefill_with_cache(p, cfg, toks.to(d), 32)
+        tok = torch.argmax(lg, -1)
+        for t in range(4):
+            lg2, cache = M.decode(p, cfg, tok, cache, 16 + t)
+            tok = torch.argmax(lg2, -1)
+        runs.append((lg.cpu(), lg2.cpu()))
+    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert ops.LAUNCHES["decode_attention"] == 4 * cfg.n_layers
+    for a, b in zip(*runs):
+        assert _maxerr(a, b) <= 1e-4 * max(float(b.abs().max()), 1.0)
+
+
+@pytest.mark.gpu
+def test_card_routes_attention_through_kernels_with_switch_off():
+    """On the card the attention takes the kernels whatever
+    ``use_flash_kernel`` says (here off, as in every registry config), and
+    its logits are those of the reference's plain ``_sdpa`` sites, which the
+    CPU runs with the switch off."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.serve import build_params
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import tree_map
+    dev = _card()
+    cfg = get_smoke("internlm2-1.8b")
+    assert not cfg.use_flash_kernel
+    params = build_params(cfg, seed=1, device="cpu")
+    gpu_params = tree_map(lambda t: t.to(dev), params)
+    toks = torch.from_numpy(np.random.RandomState(10).randint(
+        0, cfg.vocab_size, (2, 16)).astype(np.int32))
+    runs = []
+    for p, d in ((gpu_params, dev), (params, "cpu")):
+        ops.reset_launches()
+        full, _ = tr.decoder_logits(p, cfg, {"tokens": toks.to(d)})
+        lg, cache = tr.decoder_prefill_with_cache(p, cfg, toks.to(d), 32)
+        lg2, cache = M.decode(p, cfg, torch.argmax(lg, -1), cache, 16)
+        runs.append((full.cpu(), lg.cpu(), lg2.cpu(), dict(ops.LAUNCHES)))
+    (*card, n_card), (*cpu, n_cpu) = runs
+    assert n_card["flash_attention"] == 2 * cfg.n_layers
+    assert n_card["decode_attention"] == cfg.n_layers
+    assert n_cpu["flash_attention"] == n_cpu["decode_attention"] == 0
+    for a, b in zip(card, cpu):
+        assert _maxerr(a, b) <= 1e-4 * max(float(b.abs().max()), 1.0)

@@ -54,7 +54,13 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
     for mod in ("optim.adam", "core.padding", "core.comm", "core.training",
                 "core.distill", "core.pipeline", "configs.apcvfl_paper",
                 "experiments.results", "kernels.distill_loss",
-                "kernels.probe"):
+                "kernels.probe", "kernels.flash_attention",
+                "kernels.decode_attention", "configs.base",
+                "configs.internlm2_1_8b", "configs.internlm2_20b",
+                "configs.yi_6b", "configs.nemotron_4_15b",
+                "sharding.policy", "models.common", "models.ffn",
+                "models.attention", "models.transformer", "models.model",
+                "serve.decode", "serve.engine", "launch.serve"):
         assert f"repro_torch.{mod}" in r.stdout.split(), mod
 
 
@@ -89,8 +95,14 @@ def test_entry_points_default_to_cuda():
                classifier.init_logreg, classifier.kfold_cv,
                classifier.kfold_cv_many):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
-    from repro_torch.launch import serve_vfl
-    assert "default=\"cuda\"" in inspect.getsource(serve_vfl.main)
+    from repro_torch.launch import serve, serve_vfl
+    from repro_torch.serve import engine
+    from repro_torch.sharding import policy
+    for fn in (engine.Engine.__init__, policy.init_params,
+               serve.build_params):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    for cli in (serve_vfl.main, serve.main):
+        assert "default=\"cuda\"" in inspect.getsource(cli)
 
 
 @pytest.mark.parametrize("where", ["checkout", "alone"])
