@@ -19,10 +19,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
    against itself on CPU copies at the same bounds: ``fused_mlp2`` and
    ``fused_lane_mlp2`` under autograd with and without an input gradient,
    ``fused_distill_rows`` and ``probe_grad_step`` in both forms.  Then the
-   flash-attention wrapper at four (B, S, H, K, hd) shapes, causal with
-   window 0 and 128 and full, and the decode-attention wrapper at W 64 and
+   flash-attention wrapper at five (B, S, H, K, hd) shapes (zamba2's MHA
+   at hd 80 among them), causal with window 0 and 128 and full, and the
+   decode-attention wrapper at internlm2's and zamba2's heads, W 64 and
    1024 with empty slots, window 0 and 48, fp32 within 2e-5 and bf16
    within 3e-2 (the reference's bounds), and with every slot empty (0).
+   Then the SSD intra-chunk wrapper within 2e-4 (the reference's bound) at
+   zamba2's width (B 2, S 512, H 80, N = P = 64, Lc 256), a ragged grouped
+   chunk (S 100, H 6, G 2) and per-step log-decays down to -16.
 3. serve  — a full-width bundle (Table-3 g3, g1_active, g2; random heads;
    10000 cached latents) on the paper's largest scenario (mimic3, 5 active
    features, 10000 aligned rows), served by
@@ -60,15 +64,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
    against the plain ``_sdpa`` sites the CPU runs with the switch off.
    Phase 5 times both attention kernels at the engine's decode shape and
    at the ``prefill_step`` shape.
+8. zamba  — the hybrid's serving path: zamba2-2.7b at full width and depth
+   in bf16, ``prefill_step`` at B 2, S 2048 (exactly 54 SSD and 9 flash
+   launches a call) and greedy decode through ``make_decode_step`` from
+   ``init_cache`` at B 8 with 1024 slots, 16 prompt tokens fed through
+   decode steps then 48 generated (exactly 9 decode launches a step), each
+   with a profiled window.  Then one group (6 mamba layers, one shared
+   application) in fp32 at full width: ``prefill_step`` at B 2, S 512 and 8
+   decode steps on the card and the CPU (identical tokens, logits within
+   1e-4 x max|logit|), and on the card 512 decode steps against the full
+   forward (1e-3 x max|logit|).  Phase 5 times the SSD kernel at the
+   prefill's shape.
 
 Launch counters are zeroed just before each run of a path (serve fp32,
-serve int8, train, probe, lm) and read just after; every kernel must have
-launched on its path.  The last lines are a ``details:`` line (every
-measurement as JSON), the ``kernels`` JSON, the card's name and power
-limit, and ``{"ok": true, "device": ...}``.
+serve int8, train, probe, lm, each zamba prefill and the zamba decode) and
+read just after; every kernel must have launched on its path.  The last
+lines are a ``details:`` line (every measurement as JSON), the ``kernels``
+JSON, the card's name and power limit, and ``{"ok": true, "device":
+...}``.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -132,9 +149,31 @@ TOL_ATTN = {"float32": 2e-5, "bfloat16": 3e-2}
 # card vs CPU logits of the depth-2 decoder, relative to max|logit|
 TOL_LM = 1e-4
 FLASH_SHAPES = ((1, 128, 16, 8, 128), (2, 2048, 16, 8, 128),
-                (1, 32, 16, 8, 128), (1, 200, 4, 2, 64))   # (B, S, H, K, hd)
+                (1, 32, 16, 8, 128), (1, 200, 4, 2, 64),
+                (2, 512, 32, 32, 80), (2, 2048, 32, 32, 80))
+# (B, S, H, K, hd); the last is zamba2's shared block at prefill_step's size
 FLASH_MASKS = ((True, 0), (True, 128), (False, 0))           # (causal, window)
 DECODE_W = (64, 1024)
+# decode attention's (H, K, hd): internlm2-1.8b's GQA, zamba2's MHA
+DECODE_HEADS = ((16, 8, 128), (32, 32, 80))
+# the SSD intra-chunk block vs its plain version, the reference's allclose
+# bound (tests/test_kernels.py::test_ssd_intra_chunk_kernel, atol = rtol)
+TOL_SSD = 2e-4
+# (B, S, H, G, N, P, Lc, steep): zamba2's width over two chunks and at
+# prefill_step's B 2, S 2048 (eight chunks, the main path's shape); a ragged
+# grouped chunk (S 100, so Lc 100); per-step log-decays down to -16, where
+# far pairs underflow to 0
+SSD_CASES = {"zamba2 width": (2, 512, 80, 1, 64, 64, 256, False),
+             "zamba2 prefill": (2, 2048, 80, 1, 64, 64, 256, False),
+             "ragged grouped": (1, 100, 6, 2, 16, 32, 100, False),
+             "steep decay": (2, 512, 8, 1, 64, 64, 256, True)}
+# the hybrid serving cell: zamba2-2.7b, full width and depth, bf16
+ZAMBA = dict(arch="zamba2-2.7b", prefill=(2, 2048), prefill_calls=3,
+             batch=8, slots=1024, prompt=16, new=48, profile_steps=10)
+# card vs CPU and decode vs forward: one group (6 mamba layers, one
+# shared-block application) at full width in fp32
+ZAMBA_CHECK = dict(layers=6, prefill=(2, 512), steps=8)
+TOL_DECODE_VS_FORWARD = 1e-3            # x max|logit|, on the card
 # the LM serving cell: internlm2-1.8b, full width
 LM = dict(arch="internlm2-1.8b", batch=8, slots=1024, prefill_len=128,
           requests=32, prompt=(16, 129), max_new=64)
@@ -266,6 +305,7 @@ def phase_check() -> dict:
             err["int8_matmul"] = max(err["int8_matmul"], e)
     check_training_kernels(gen, err)
     check_attention_kernels(gen, err)
+    check_ssd_kernel(gen, err)
     return err, check_wrappers(gen)
 
 
@@ -459,8 +499,8 @@ def check_attention_kernels(gen, err: dict) -> None:
                 key = f"flash_attention/{dname}"
                 err[key] = max(err[key], e)
             del q, k, v, got, want
-        B, H, K, hd = LM["batch"], 16, 8, 128
-        for W in DECODE_W:
+        B = LM["batch"]
+        for (H, K, hd), W in itertools.product(DECODE_HEADS, DECODE_W):
             pos = W * 3 // 4
             sp = _slot_pos(W, pos)
             q = _rand(gen, (B, H, hd)).to(dt)
@@ -473,11 +513,11 @@ def check_attention_kernels(gen, err: dict) -> None:
                                                   window=window)
                 torch.cuda.synchronize()
                 e = _maxerr(got.float(), want.float())
-                log(f"decode_attention {dname} B={B} W={W} pos={pos} "
-                    f"window={window}: max|err| {e:.3e}")
+                log(f"decode_attention {dname} B={B} H={H} K={K} hd={hd} "
+                    f"W={W} pos={pos} window={window}: max|err| {e:.3e}")
                 _require(got.dtype == dt and _within(
                     got.float(), want.float(), TOL_ATTN[dname]),
-                    ("decode", dname, W, window, e))
+                    ("decode", dname, H, hd, W, window, e))
                 key = f"decode_attention/{dname}"
                 err[key] = max(err[key], e)
         # every slot empty: the row is 0 in the kernel and its plain version
@@ -497,6 +537,69 @@ def check_attention_kernels(gen, err: dict) -> None:
     _require(counts == {k: calls.get(k, 0) for k in counts}, (counts, calls))
     for name in ("flash_attention", "decode_attention"):
         err[name] = err[f"{name}/float32"]
+
+
+def _ssd_inputs(gen, B, S, H, G, N, P, steep=False):
+    """x, dt, A, Bm, Cm on the card as ``ssd_chunked`` receives them: dt a
+    softplus and A negative, or (``steep``) dt in [0, 1) and A in [-16,
+    -1], so per-step log-decays reach -16."""
+    import torch
+    import torch.nn.functional as F
+    x = _rand(gen, (B, S, H, P))
+    if steep:
+        dt = torch.rand((B, S, H), generator=gen).cuda()
+        A = -torch.exp(torch.rand((H,), generator=gen)
+                       * float(np.log(16.0))).cuda()
+    else:
+        dt = F.softplus(_rand(gen, (B, S, H)))
+        A = -torch.exp(_rand(gen, (H,), 0.5))
+    return x, dt, A, _rand(gen, (B, S, G, N)), _rand(gen, (B, S, G, N))
+
+
+def check_ssd_kernel(gen, err: dict) -> None:
+    """The SSD intra-chunk wrapper, as ``ssd_chunked`` calls it, against
+    its plain version on the same card tensors in the SSD_CASES (part of
+    phase 2), and against the plain version on CPU copies, whose products
+    sum in another order; each wrapper call must count one launch."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    err["ssd_intra_chunk"] = err["ssd_intra_chunk_vs_cpu"] = 0.0
+    ops.reset_launches()
+    for name, (B, S, H, G, N, P, Lc, steep) in SSD_CASES.items():
+        args = _ssd_inputs(gen, B, S, H, G, N, P, steep)
+        y, st = ops.ssd_intra_chunk(*args, Lc)
+        y_want, st_want = ref.ssd_intra_chunk_ref(*args, Lc)
+        torch.cuda.synchronize()
+        _require(tuple(y.shape) == (B, S, H, P) and tuple(st.shape) == (
+            B, S // Lc, H, N, P), (name, tuple(y.shape), tuple(st.shape)))
+        y_cpu, st_cpu = ref.ssd_intra_chunk_ref(*(t.cpu() for t in args), Lc)
+        y, st = y.cpu(), st.cpu()
+        e = max(_maxerr(y, y_want.cpu()), _maxerr(st, st_want.cpu()))
+        e_cpu = max(_maxerr(y, y_cpu), _maxerr(st, st_cpu))
+        log(f"ssd_intra_chunk {name} B={B} S={S} H={H} G={G} N={N} P={P} "
+            f"Lc={Lc}: max|err| {e:.3e}, vs the cpu {e_cpu:.3e} (max|y| "
+            f"{float(y_cpu.abs().max()):.3e}, max|states| "
+            f"{float(st_cpu.abs().max()):.3e}, decays that underflow to 0: "
+            f"{_underflow_share(args[1] * args[2], Lc):.3f})")
+        for want, want_st in ((y_want.cpu(), st_want.cpu()), (y_cpu, st_cpu)):
+            _require(_within(y, want, TOL_SSD) and _within(
+                st, want_st, TOL_SSD), ("ssd", name, e, e_cpu))
+        err["ssd_intra_chunk"] = max(err["ssd_intra_chunk"], e)
+        err["ssd_intra_chunk_vs_cpu"] = max(err["ssd_intra_chunk_vs_cpu"],
+                                            e_cpu)
+    counts = dict(ops.LAUNCHES)
+    _require(counts["ssd_intra_chunk"] == len(SSD_CASES), counts)
+
+
+def _underflow_share(a, Lc: int) -> float:
+    """The share of the lower-triangle decays exp(cs_l - cs_s) of the first
+    chunk that are exactly 0 in fp32."""
+    import torch
+    from repro_torch.kernels.ref import prefix_sum
+    cs = prefix_sum(a[:, :Lc], 1).movedim(1, -1)          # (B, H, Lc)
+    d = torch.exp(cs[..., :, None] - cs[..., None, :])
+    tri = torch.ones((Lc, Lc), dtype=torch.bool, device=a.device).tril()
+    return float((d[..., tri] == 0).float().mean())
 
 
 def make_bundle(seed: int = 0):
@@ -803,6 +906,7 @@ def phase_time() -> dict:
                 a[3], a[0], a[1].float() * a[2]))))
     sets.update(_training_kernel_sets(gen))
     sets.update(_attention_kernel_sets(gen))
+    sets.update(_ssd_kernel_sets(gen))
     res = {}
     for kname, items in sets.items():
         per_shape = []
@@ -947,6 +1051,36 @@ def _attention_kernel_sets(gen) -> dict:
             q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
             attn_mask=mask[None, None, None], enable_gqa=True))]
     return sets
+
+
+def ssd_work(B, S, H, G, N, P, Lc) -> tuple:
+    """(operations, bytes) of the SSD intra-chunk block: per (b, chunk,
+    head) the lower triangle's scores (N) and y (P) products, 2 operations
+    a multiply-add, and the states' Lc * N * P; bytes count x, dt, A, B, C
+    in and y, states out once."""
+    tri = Lc * (Lc + 1) / 2
+    flops = B * (S // Lc) * H * (2.0 * tri * (N + P) + 2.0 * Lc * N * P)
+    nbytes = 4.0 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * G * N
+                    + B * (S // Lc) * H * N * P)
+    return flops, nbytes
+
+
+def _ssd_kernel_sets(gen) -> dict:
+    """The SSD kernel at zamba2's prefill (``prefill_step``'s B 2, S 2048:
+    H 80, one group, N = P = 64, Lc 256), inputs distributed as the model
+    gives them; no single PyTorch call computes the block."""
+    from repro_torch.kernels import ops, ref
+    cfg = _zamba_cfg()
+    B, S = ZAMBA["prefill"]
+    H, G, N, P, Lc = (cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_state,
+                      cfg.ssm_head_dim, cfg.ssm_chunk)
+    args = _ssd_inputs(gen, B, S, H, G, N, P)
+    flops, nbytes = ssd_work(B, S, H, G, N, P, Lc)
+    return {"ssd_intra_chunk": [dict(
+        shape=f"B={B} S={S} H={H} G={G} N={N} P={P} Lc={Lc} fp32",
+        flops=flops, bytes=nbytes, iters=10,
+        kernel=lambda: ops.ssd_intra_chunk(*args, Lc),
+        plain=lambda: ref.ssd_intra_chunk_ref(*args, Lc), library=None)]}
 
 
 def _observed(fn, calls: list):
@@ -1173,16 +1307,54 @@ def phase_lm() -> dict:
     return res
 
 
-def _profile_decode(params, cfg, steps: int = 10) -> dict:
-    """Decode steps of the LM cell's engine (8 requests in flight, warm):
-    ``steps`` timed by the engine, then ``steps`` under the profiler, with
-    the card's busy share of the wall and its time by kind: the decode
-    kernel, GEMMs (cuBLAS), and the rest (PyTorch's elementwise, copy and
-    reduction kernels)."""
+# the port's kernels by the name of their __global__ function
+KERNEL_NAMES = {"decode_kernel": "decode_attention",
+                "flash_kernel": "flash_attention",
+                "ssd_kernel": "ssd_intra_chunk"}
+
+
+def _profiled(fn, calls: int) -> dict:
+    """``calls`` calls of ``fn`` under the profiler: the host wall per call,
+    the card's time per call by kind (each port kernel, GEMMs (cuBLAS), and
+    the rest: PyTorch's elementwise, copy and reduction kernels), its busy
+    share of the wall, and the largest device items."""
     import time
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kinds = {k: 0.0 for k in (*KERNEL_NAMES.values(), "gemm", "other")}
+    names: dict = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        low = e.name.lower()
+        kind = next((v for k, v in KERNEL_NAMES.items() if k in low), None)
+        if kind is None:
+            kind = ("gemm" if any(t in low for t in (
+                "gemm", "gemv", "cutlass", "xmma", "nvjet")) else "other")
+        kinds[kind] += us
+        names[e.name[:80]] = names.get(e.name[:80], 0.0) + us
+    return {"calls": calls, "wall_ms_per_call_profiled": wall_us / calls / 1e3,
+            "device_ms_per_call": {k: v / calls / 1e3
+                                   for k, v in kinds.items()},
+            "device_busy_share": sum(kinds.values()) / wall_us,
+            "top": sorted(((v / calls / 1e3, k) for k, v in names.items()),
+                          reverse=True)[:8]}
+
+
+def _profile_decode(params, cfg, steps: int = 10) -> dict:
+    """Decode steps of the LM cell's engine (8 requests in flight, warm):
+    ``steps`` timed by the engine, then ``steps`` under the profiler
+    (``_profiled``)."""
     from repro_torch.launch import serve
     from repro_torch.serve.engine import Engine
     eng = Engine(params, cfg, batch=LM["batch"], n_slots=LM["slots"],
@@ -1193,36 +1365,8 @@ def _profile_decode(params, cfg, steps: int = 10) -> dict:
         eng.submit(r)
     for _ in range(3 + steps):       # the prefills, then warm decode steps
         eng.step()
-    unprofiled = eng.step_ms[-steps:]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            eng.step()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kinds = {"decode_attention": 0.0, "gemm": 0.0, "other": 0.0}
-    names: dict = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = e.time_range.elapsed_us()
-        low = e.name.lower()
-        kind = ("decode_attention" if "decode_kernel" in low else
-                "gemm" if any(t in low for t in ("gemm", "gemv", "cutlass",
-                                                 "xmma", "nvjet")) else
-                "other")
-        kinds[kind] += us
-        names[e.name[:80]] = names.get(e.name[:80], 0.0) + us
-    busy = sum(kinds.values())
-    out = {"steps": steps, "step_ms_unprofiled": unprofiled,
-           "wall_ms_per_step_profiled": wall_us / steps / 1e3,
-           "device_ms_per_step": {k: v / steps / 1e3
-                                  for k, v in kinds.items()},
-           "device_busy_share": busy / wall_us,
-           "top": sorted(((v / steps / 1e3, k) for k, v in names.items()),
-                         reverse=True)[:8]}
+    out = {"steps": steps, "step_ms_unprofiled": eng.step_ms[-steps:]}
+    out.update(_profiled(eng.step, steps))
     log(f"decode profile: {out}")
     return out
 
@@ -1311,6 +1455,196 @@ def lm_card_vs_cpu() -> dict:
             "direct_launches": direct}
 
 
+def _zamba_cfg(**kw):
+    from repro_torch.configs import get_config
+    return get_config(ZAMBA["arch"]).with_(**kw)
+
+
+def _tokens(seed: int, B: int, S: int, vocab: int):
+    import torch
+    return torch.from_numpy(np.random.RandomState(seed).randint(
+        0, vocab, (B, S)).astype(np.int32))
+
+
+def phase_zamba() -> dict:
+    """The zamba2 hybrid's serving path on the card (phase 8): at full width
+    and depth in bf16, ``prefill_step`` at B 2, S 2048 (54 SSD and 9 flash
+    launches a call) and lockstep greedy decode through
+    ``make_decode_step`` from ``init_cache`` (9 decode launches a step),
+    with a profiled window of each; then one group in fp32 against the CPU
+    and the card's decode against its forward (``zamba_checks``)."""
+    import time
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.serve.decode import make_decode_step, prefill_step
+    from repro_torch.tree import tree_leaves
+    log(f"=== phase 8: serve {ZAMBA['arch']} at full width and depth ===")
+    cfg = _zamba_cfg()
+    L, G = cfg.n_layers, cfg.n_layers // cfg.attn_period
+    params = serve.build_params(cfg, device=CARD)
+    res = {"n_params": sum(t.numel() for t in tree_leaves(params)),
+           "launches": {k: 0 for k in ops.LAUNCHES}}
+    per_prefill = {k: 0 for k in ops.LAUNCHES}
+    per_prefill.update(ssd_intra_chunk=L, flash_attention=G)
+
+    B, S = ZAMBA["prefill"]
+    toks = _tokens(1, B, S, cfg.vocab_size).to(CARD)
+    walls = []
+    with torch.no_grad():
+        for _ in range(1 + ZAMBA["prefill_calls"]):   # the first warms up
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            lg = prefill_step(params, cfg, {"tokens": toks})
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            counts = dict(ops.LAUNCHES)
+            _require(counts == per_prefill, (counts, per_prefill))
+            for k, v in counts.items():
+                res["launches"][k] += v
+        _require(tuple(lg.shape) == (B, cfg.vocab_size) and lg.dtype
+                 == torch.bfloat16 and bool(torch.isfinite(lg).all()),
+                 (tuple(lg.shape), lg.dtype))
+        prof = _profiled(lambda: prefill_step(params, cfg, {"tokens": toks}),
+                         1)
+    res["prefill_step"] = {"B": B, "S": S, "ms": walls,
+                           "ms_p50_warm": float(np.median(walls[1:])),
+                           "launches_per_call": counts, "profile": prof}
+    log(f"zamba prefill_step B={B} S={S}: {walls} ms, launches per call "
+        f"{counts}; profile {prof}")
+    del lg
+
+    Bd, P, new = ZAMBA["batch"], ZAMBA["prompt"], ZAMBA["new"]
+    prompts = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (Bd, P)).astype(np.int32)
+    step = make_decode_step(cfg)
+    state = {"cache": M.init_cache(params, cfg, Bd, ZAMBA["slots"]),
+             "pos": 0, "tok": torch.from_numpy(prompts[:, 0]).to(CARD)}
+
+    def one_step():
+        """One decode step, ending in the device->host copy of its tokens;
+        the next input is the prompt's next token or this step's output."""
+        nxt, state["cache"] = step(params, state["tok"], state["cache"],
+                                   state["pos"])
+        out = nxt.cpu().numpy()
+        state["pos"] += 1
+        state["tok"] = (torch.from_numpy(prompts[:, state["pos"]]).to(CARD)
+                        if state["pos"] < P else nxt)
+        return out
+
+    step_ms, generated = [], []
+    ops.reset_launches()
+    with torch.no_grad():
+        for t in range(P + new):
+            t0 = time.perf_counter()
+            out = one_step()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if t >= P - 1:
+                generated.append(out)
+        dcounts = dict(ops.LAUNCHES)
+        per_step = {k: 0 for k in ops.LAUNCHES}
+        per_step["decode_attention"] = G * (P + new)
+        _require(dcounts == per_step, (dcounts, per_step))
+        gen = np.stack(generated[:new], axis=1)        # (B, new)
+        _require(gen.shape == (Bd, new) and int(gen.min()) >= 0
+                 and int(gen.max()) < cfg.vocab_size, gen.shape)
+        for k, v in dcounts.items():
+            res["launches"][k] += v
+        prof = _profiled(one_step, ZAMBA["profile_steps"])
+    gen_ms = sum(step_ms[P:])
+    res["decode"] = {
+        "batch": Bd, "slots": ZAMBA["slots"], "prompt": P, "new": new,
+        "steps": P + new, "step_ms_p50": float(np.percentile(step_ms, 50)),
+        "step_ms_p99": float(np.percentile(step_ms, 99)),
+        "step_ms": step_ms, "generated_tokens_per_s": Bd * new / gen_ms * 1e3,
+        "launches": dcounts, "first_row_tokens": gen[0].tolist(),
+        "profile": prof}
+    log(f"zamba decode: {res['decode']}")
+    del params, state
+    torch.cuda.empty_cache()
+    res["check"] = zamba_checks()
+    return res
+
+
+def zamba_checks() -> dict:
+    """zamba2-2.7b at full width with one group (6 mamba layers and one
+    shared-block application) in fp32, weights made once on the CPU and
+    copied to the card.  Card vs CPU: ``prefill_step`` logits at B 2, S 512
+    (two SSD chunks, so the recurrence runs) and 8 greedy decode steps from
+    ``init_cache``, identical tokens and logits within TOL_LM x max|logit|.
+    Then, on the card, the 512 tokens through 512 decode steps (the
+    recurrent ``mamba_decode`` and the decode kernel) against the full
+    forward (the SSD and flash kernels) within TOL_DECODE_VS_FORWARD x
+    max|logit|."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.serve.decode import prefill_step
+    from repro_torch.tree import tree_map
+    c = ZAMBA_CHECK
+    cfg = _zamba_cfg(n_layers=c["layers"], dtype="float32")
+    G = cfg.n_layers // cfg.attn_period
+    cpu = serve.build_params(cfg, device="cpu")
+    card = tree_map(lambda t: t.to(CARD), cpu)
+    B, S = c["prefill"]
+    toks = _tokens(2, B, S, cfg.vocab_size)
+    runs = {}
+    ops.reset_launches()
+    for dev, p in ((CARD, card), ("cpu", cpu)):
+        with torch.no_grad():
+            lgs = [prefill_step(p, cfg, {"tokens": toks.to(dev)}).cpu()]
+            cache = M.init_cache(p, cfg, B, 16)
+            tok = toks[:, 0].to(dev)
+            for t in range(c["steps"]):
+                lg, cache = M.decode(p, cfg, tok, cache, t)
+                lgs.append(lg.cpu())
+                tok = torch.argmax(lg, -1).to(torch.int32)
+        runs[dev] = lgs
+    counts = dict(ops.LAUNCHES)
+    _require(counts["ssd_intra_chunk"] == cfg.n_layers
+             and counts["flash_attention"] == G
+             and counts["decode_attention"] == G * c["steps"], counts)
+    rel = []
+    for got, want in zip(runs[CARD], runs["cpu"]):
+        _require(bool(torch.isfinite(got).all()), "card logits not finite")
+        _require(torch.equal(torch.argmax(got, -1), torch.argmax(want, -1)),
+                 "card and cpu disagree on a greedy token")
+        rel.append(float((got - want).abs().max() / want.abs().max()))
+    log(f"zamba depth-{cfg.n_layers} card vs cpu logits, max|d| / "
+        f"max|logit| (prefill, then each decode step): {rel}")
+    _require(max(rel) <= TOL_LM, rel)
+    del cpu
+
+    ops.reset_launches()
+    with torch.no_grad():
+        tc = toks.to(CARD)
+        full, _ = M.logits(card, cfg, {"tokens": tc})
+        cache = M.init_cache(card, cfg, B, S)
+        gap = torch.zeros((), device=CARD)
+        agree = torch.zeros((), dtype=torch.int64, device=CARD)
+        for t in range(S):
+            lg, cache = M.decode(card, cfg, tc[:, t], cache, t)
+            gap = torch.maximum(gap, (lg - full[:, t]).abs().max())
+            agree += (lg.argmax(-1) == full[:, t].argmax(-1)).sum()
+        dvf = float(gap) / float(full.abs().max())
+    dvf_counts = dict(ops.LAUNCHES)
+    _require(dvf_counts["ssd_intra_chunk"] == cfg.n_layers
+             and dvf_counts["flash_attention"] == G
+             and dvf_counts["decode_attention"] == G * S, dvf_counts)
+    log(f"zamba depth-{cfg.n_layers} on the card, {S} decode steps vs the "
+        f"forward: max|d| / max|logit| {dvf:.3e}; greedy tokens agree at "
+        f"{int(agree)} of {B * S} positions")
+    _require(dvf <= TOL_DECODE_VS_FORWARD, dvf)
+    return {"layers": cfg.n_layers, "logit_rel_err": rel,
+            "max_logit_rel_err": max(rel), "tokens_identical": True,
+            "launches": counts, "decode_vs_forward_rel_err": dvf,
+            "decode_vs_forward_token_agreement": int(agree) / (B * S),
+            "decode_vs_forward_launches": dvf_counts}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1345,6 +1679,8 @@ def main() -> int:
     done("limit")
     lm = phase_lm()
     done("lm")
+    zamba = phase_zamba()
+    done("zamba")
 
     csrc = "src/repro_torch/kernels/csrc/"
     srcs = {"lane_mlp_fwd": ("lane_mlp_fwd.cu", "lane_mlp.py:57"),
@@ -1356,12 +1692,13 @@ def main() -> int:
             "flash_attention": ("flash_attention.cu",
                                 "flash_attention.py:28"),
             "decode_attention": ("decode_attention.cu",
-                                 "decode_attention.py:30")}
+                                 "decode_attention.py:30"),
+            "ssd_intra_chunk": ("ssd_chunk.cu", "ssd_chunk.py:24")}
     kernels = []
     for name in ops.LAUNCHES:
         t = timing[name]
         launches = (serve["launches"][name] + train["launches"][name]
-                    + lm["launches"][name])
+                    + lm["launches"][name] + zamba["launches"][name])
         _require(launches > 0, f"{name} never launched on its path")
         kernels.append({
             "name": name, "route": "cuda", "source": csrc + srcs[name][0],
@@ -1374,6 +1711,8 @@ def main() -> int:
             kernels[-1]["max_rel_err"] = errs["lane_mlp_bwd_rel"]
         if "attention" in name:             # fp32 above, bf16 here
             kernels[-1]["max_abs_err_bf16"] = errs[f"{name}/bfloat16"]
+        if name == "ssd_intra_chunk":       # against the plain version on CPU
+            kernels[-1]["max_abs_err_vs_cpu"] = errs["ssd_intra_chunk_vs_cpu"]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1387,10 +1726,17 @@ def main() -> int:
                                      "step_ms_p99", "prefill_ms_p50")}
         | {"launches_per_decode_step": lm["launches_per_decode_step"],
            "prefill_step_ms": lm["prefill_step"]["ms"]}))
+    log(f"zamba ({ZAMBA['arch']}, bf16): " + json.dumps(
+        {"prefill_step_ms": zamba["prefill_step"]["ms"]}
+        | {k: zamba["decode"][k] for k in (
+            "step_ms_p50", "step_ms_p99", "generated_tokens_per_s")}
+        | {k: zamba["check"][k] for k in ("max_logit_rel_err",
+                                          "decode_vs_forward_rel_err")}))
     log("details: " + json.dumps({"timing": timing, "serve": serve,
                                   "train": train, "train_time": train_time,
                                   "turns": turns, "g3_limit": limit,
-                                  "lm": lm, "elapsed_s": elapsed,
+                                  "lm": lm, "zamba": zamba,
+                                  "elapsed_s": elapsed,
                                   "wrappers": wrappers,
                                   "torch": torch.__version__,
                                   "cuda": torch.version.cuda}))

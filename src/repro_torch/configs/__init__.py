@@ -1,6 +1,6 @@
 """Model configs: ``get_config(arch_id)`` / ``get_smoke(arch_id)`` for the
-dense decoders the port serves, and the tabular APC-VFL protocol's
-hyperparameters (``apcvfl_paper``)."""
+dense decoders and the zamba2 hybrid the port serves, and the tabular
+APC-VFL protocol's hyperparameters (``apcvfl_paper``)."""
 from __future__ import annotations
 
 import importlib
@@ -22,8 +22,10 @@ ARCH_IDS = [
     "kimi-k2-1t-a32b",
     "apcvfl-paper",
 ]
-# the dense decoders ported so far; the other families come later
-PORTED = ("internlm2-1.8b", "internlm2-20b", "yi-6b", "nemotron-4-15b")
+# the configs ported so far (the dense decoders and the zamba2 hybrid); the
+# other families come later
+PORTED = ("internlm2-1.8b", "internlm2-20b", "yi-6b", "nemotron-4-15b",
+          "zamba2-2.7b")
 
 
 def _mod(arch: str):

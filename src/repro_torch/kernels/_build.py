@@ -20,7 +20,8 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "build")
 SOURCES = ("lane_mlp_fwd", "lane_mlp_bwd", "int8_matmul",
-           "distill_loss", "probe", "flash_attention", "decode_attention")
+           "distill_loss", "probe", "flash_attention", "decode_attention",
+           "ssd_chunk")
 # no --use_fast_math: it swaps expm1f/expf for approximations and the SELU
 # would drift from the reference's rounding
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -12,6 +12,10 @@ The attention wrappers take the model's layouts and grouped-query heads
 as they are (k/v with K kv heads, K dividing H): the kernels map q head
 ``h`` to kv head ``h // (H // K)``, and only the plain path expands them.
 
+``ssd_intra_chunk`` likewise takes the model's layout (B and C per group,
+G dividing the heads) and returns the states in the layout the inter-chunk
+recurrence reads.
+
 The two differentiable kernels carry a ``torch.autograd.Function`` whose
 backward is the closed-form backward kernel (on the CPU its plain
 version), as the reference's ``jax.custom_vjp`` does: ``LaneMLP2`` for the
@@ -25,7 +29,8 @@ from repro_torch.kernels import ref
 
 LAUNCHES = {"lane_mlp_fwd": 0, "lane_mlp_bwd": 0, "int8_matmul": 0,
             "distill_fwd": 0, "distill_bwd": 0, "probe": 0,
-            "flash_attention": 0, "decode_attention": 0}
+            "flash_attention": 0, "decode_attention": 0,
+            "ssd_intra_chunk": 0}
 
 
 def reset_launches() -> None:
@@ -274,4 +279,30 @@ def decode_attention(q, k, v, slot_pos, pos: int, *, window: int = 0):
                     slot_pos.to(torch.int32).contiguous(), int(pos),
                     window=window)
     LAUNCHES["decode_attention"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD
+# ---------------------------------------------------------------------------
+
+def ssd_intra_chunk(x, dt, A, Bm, Cm, chunk: int, *, bf16: bool = False):
+    """The SSD intra-chunk block in the model's layout: x (B, S, H, P), dt
+    (B, S, H), A (H,), Bm/Cm (B, S, G, N), ``chunk`` dividing S -> (y_intra
+    (B, S, H, P), states (B, S // chunk, H, N, P)), fp32.  One SSD kernel
+    launch on CUDA; on the CPU ``ref.ssd_intra_chunk_ref``.  ``bf16`` is
+    ``cfg.ssd_bf16``, an opt-in precision variant that only the plain
+    version has so far: on the card it raises rather than run the fp32
+    kernel in its place."""
+    if not _on_cuda(x, "ssd_intra_chunk"):
+        return ref.ssd_intra_chunk_ref(x, dt, A, Bm, Cm, chunk, bf16=bf16)
+    if bf16:
+        raise NotImplementedError(
+            "ssd_intra_chunk: the bf16 SSD (cfg.ssd_bf16) has no kernel on "
+            "the card yet; it comes with its own bound (ROADMAP.md, Queue 1, "
+            "kernel speed)")
+    from repro_torch.kernels import ssd_chunk
+    out = ssd_chunk.launch(*(t.contiguous() for t in (x, dt, A, Bm, Cm)),
+                           int(chunk))
+    LAUNCHES["ssd_intra_chunk"] += 1
     return out

@@ -2,7 +2,9 @@
 tensor runs, and what the CUDA kernels are held against on the card.
 Counterparts of ``repro.kernels.ref``, of the closed-form backward
 passes in ``repro.kernels.lane_mlp`` / ``distill_loss`` / ``probe``, and of
-the masked softmax the reference's tests hold ``decode_attention`` to.
+the masked softmax the reference's tests hold ``decode_attention`` to, and
+of the Mamba2 SSD intra-chunk block (``repro.models.mamba2.ssd_chunked``)
+with its sequential oracle.
 
 Each backward here is written out in closed form, as its Pallas kernel
 computes it, and is not autograd of the forward.  Every function takes an
@@ -184,3 +186,73 @@ def decode_attention_cache(q, k, v, slot_pos, pos, *, window: int = 0):
               for t in (k, v))
     return decode_attention_ref(q.reshape(B * H, hd), kf, vf, slot_pos, pos,
                                 window=window).reshape(B, H, hd)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD
+# ---------------------------------------------------------------------------
+
+def prefix_sum(a: torch.Tensor, dim: int) -> torch.Tensor:
+    """fp32 prefix sums accumulated in float64 and rounded once, which is
+    what ``torch.cumsum`` does for fp32 on the CPU.  The SSD kernel sums the
+    same way, so the card's plain version, the kernel and the CPU agree on
+    every bit of the log-decay sums, whose differences the decays are made
+    of (at ``|cs|`` ~ 2e3 one fp32 ulp of ``cs`` is 2.4e-4 of a decay)."""
+    return torch.cumsum(a.to(torch.float64), dim).to(torch.float32)
+
+
+def ssd_intra_chunk_ref(x, dt, A, Bm, Cm, Lc: int, *, bf16: bool = False):
+    """The intra-chunk block of the chunked SSD in the model's layout
+    (``repro.models.mamba2.ssd_chunked``, the lines from ``xdt`` to
+    ``states``): x (B, S, H, P) fp32, dt (B, S, H) fp32, A (H,) fp32, Bm/Cm
+    (B, S, G, N) with G dividing H (head h reads group h // (H // G)), and
+    ``Lc`` dividing S.  With ``xdt = x * dt``, ``a = dt * A`` and ``cs`` the
+    prefix sums of ``a`` over each chunk:
+
+        y[l]  = sum_{s <= l} (C[l] . B[s]) * exp(cs[l] - cs[s]) * xdt[s]
+        st    = sum_s B[s]^T * exp(cs[end] - cs[s]) * xdt[s]
+
+    Returns ``y_intra`` (B, S, H, P) fp32 and the chunk-final ``states``
+    (B, S // Lc, H, N, P) fp32.  ``bf16`` is ``cfg.ssd_bf16``: the products'
+    operands ride in bf16 as the reference's ``cdt`` casts put them."""
+    B_, S, H, P = x.shape
+    if Lc <= 0 or S % Lc:
+        raise ValueError(f"ssd: chunk {Lc} does not divide sequence {S}")
+    Nc = S // Lc
+    cdt = torch.bfloat16 if bf16 else torch.float32
+    ch = lambda t: t.reshape((B_, Nc, Lc) + t.shape[2:])
+    xdt = ch(x * dt[..., None]).to(cdt)                     # (B,Nc,Lc,H,P)
+    a = ch(dt * A)                                          # (B,Nc,Lc,H)
+    Bh = ch(expand_heads(Bm, H)).to(cdt)                    # (B,Nc,Lc,H,N)
+    Ch = ch(expand_heads(Cm, H)).to(cdt)
+    cs = prefix_sum(a, 2)
+    csh = cs.movedim(3, 2)                                  # (B,Nc,H,Lc)
+    tri = torch.ones((Lc, Lc), dtype=torch.bool, device=x.device).tril()
+    seg = torch.where(tri, csh[..., :, None] - csh[..., None, :],
+                      -torch.inf)
+    Lmat = torch.exp(seg).to(cdt)                           # (B,Nc,H,Lc,Lc)
+    scores = torch.einsum("bclhn,bcshn->bchls", Ch, Bh)
+    y = torch.einsum("bchls,bcshp->bclhp", scores * Lmat, xdt).to(
+        torch.float32)
+    decay_end = torch.exp(cs[:, :, -1:, :] - cs).to(cdt)    # (B,Nc,Lc,H)
+    states = torch.einsum("bcshn,bcshp->bchnp", Bh * decay_end[..., None],
+                          xdt).to(torch.float32)
+    return y.reshape(B_, S, H, P), states
+
+
+def ssd_chunk_ref(x, dt, A, Bm, Cm):
+    """The sequential SSD oracle (``repro.kernels.ref.ssd_chunk_ref``):
+    step by step, ``h = h * exp(dt * A) + dt * B^T x`` and ``y = C . h``.
+    x (B, S, H, P), dt (B, S, H), A (H,), Bm/Cm (B, S, G, N) -> y (B, S, H,
+    P)."""
+    B_, S, H, P = x.shape
+    N = Bm.shape[3]
+    Bh, Ch = expand_heads(Bm, H), expand_heads(Cm, H)
+    h = torch.zeros((B_, H, N, P), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dt[:, t] * A)[..., None, None]
+        upd = torch.einsum("bh,bhn,bhp->bhnp", dt[:, t], Bh[:, t], x[:, t])
+        h = h * decay + upd
+        ys.append(torch.einsum("bhn,bhnp->bhp", Ch[:, t], h))
+    return torch.stack(ys, dim=1)

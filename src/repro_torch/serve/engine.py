@@ -56,6 +56,9 @@ class Engine:
     def __init__(self, params, cfg: ModelConfig, *, batch: int,
                  n_slots: int, eos_id: Optional[int] = None,
                  prefill_len: int = 32, device="cuda"):
+        if cfg.family != "dense":
+            raise ValueError("engine supports KV-cache families; SSM/hybrid "
+                             "use decode()")
         self.device = resolve_device(device)
         self.params = tree_map(lambda t: t.to(self.device), params)
         self.cfg = cfg

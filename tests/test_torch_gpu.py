@@ -2,7 +2,8 @@
 card, at the serving and training paths' shapes, within the reference's
 pinned bounds (``benchmarks/kernelbench.py``: 1e-4 lane-MLP forward,
 1e-5 relative lane-MLP gradients, 1e-5 int8 matmul and Eq. 5 rows, 1e-4
-probe step; ``tests/test_kernels.py``: 2e-5 fp32 and 3e-2 bf16 attention).
+probe step; ``tests/test_kernels.py``: 2e-5 fp32 and 3e-2 bf16 attention,
+2e-4 the SSD intra-chunk block), and the zamba2 hybrid's serving path.
 
 Marked ``gpu``; each test decides inside itself whether a card exists and
 skips without one.  Imports nothing of JAX, so it runs on a machine that
@@ -10,6 +11,8 @@ has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -203,7 +206,8 @@ def test_wrappers_count_launches_on_card():
     assert ops.LAUNCHES == {"lane_mlp_fwd": 2, "lane_mlp_bwd": 1,
                             "int8_matmul": 1, "distill_fwd": 1,
                             "distill_bwd": 0, "probe": 1,
-                            "flash_attention": 0, "decode_attention": 0}
+                            "flash_attention": 0, "decode_attention": 0,
+                            "ssd_intra_chunk": 0}
 
 
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
@@ -231,7 +235,8 @@ def test_flash_attention_matches_plain_on_card(dtype):
     dev = _card()
     rng = np.random.RandomState(7)
     for B, S, H, K, hd in ((1, 128, 16, 8, 128), (1, 32, 16, 8, 128),
-                           (1, 200, 4, 2, 64), (2, 77, 4, 4, 32)):
+                           (1, 200, 4, 2, 64), (2, 77, 4, 4, 32),
+                           (2, 160, 32, 32, 80)):      # zamba2's MHA, hd 80
         q, k, v = _attn_inputs(rng, dev, dtype, (B, S, H, hd),
                                (B, S, K, hd), (B, S, K, hd))
         for causal, window in ((True, 0), (True, 48), (False, 0)):
@@ -248,8 +253,10 @@ def test_flash_attention_matches_plain_on_card(dtype):
 def test_decode_attention_matches_plain_on_card(dtype):
     dev = _card()
     rng = np.random.RandomState(8)
-    B, H, K, hd = 2, 16, 8, 128
-    for W, pos in ((64, 40), (1024, 700)):
+    B = 2
+    # internlm2's GQA at hd 128 and zamba2's MHA at hd 80
+    for (H, K, hd), (W, pos) in itertools.product(
+            ((16, 8, 128), (32, 32, 80)), ((64, 40), (1024, 700))):
         q, kc, vc = _attn_inputs(rng, dev, dtype, (B, H, hd),
                                  (B, W, K, hd), (B, W, K, hd))
         sp = np.where(np.arange(W) <= pos, np.arange(W), -1)
@@ -261,7 +268,7 @@ def test_decode_attention_matches_plain_on_card(dtype):
             want = ops.decode_attention(q.cpu(), kc.cpu(), vc.cpu(), sp, pos,
                                         window=window)
             assert got.dtype == dtype
-            assert _allclose(got, want, ATTN_TOL[dtype]), (W, window)
+            assert _allclose(got, want, ATTN_TOL[dtype]), (H, hd, W, window)
 
 
 @pytest.mark.gpu
@@ -326,3 +333,119 @@ def test_card_routes_attention_through_kernels_with_switch_off():
     assert n_cpu["flash_attention"] == n_cpu["decode_attention"] == 0
     for a, b in zip(card, cpu):
         assert _maxerr(a, b) <= 1e-4 * max(float(b.abs().max()), 1.0)
+
+
+TOL_SSD = 2e-4          # tests/test_kernels.py::test_ssd_intra_chunk_kernel
+# (B, S, H, G, N, P, Lc, steep): zamba2's width over two chunks and at
+# prefill_step's B 2, S 2048; a ragged grouped chunk (S 100, so Lc 100);
+# per-step log-decays down to -16
+SSD_CASES = {"zamba2": (2, 512, 80, 1, 64, 64, 256, False),
+             "zamba2 prefill": (2, 2048, 80, 1, 64, 64, 256, False),
+             "ragged grouped": (1, 100, 6, 2, 16, 32, 100, False),
+             "steep decay": (2, 512, 8, 1, 64, 64, 256, True)}
+
+
+def _ssd_inputs(rng, B, S, H, G, N, P, steep):
+    x, Bm, Cm = (_randn(rng, *s) for s in ((B, S, H, P), (B, S, G, N),
+                                           (B, S, G, N)))
+    if steep:
+        dt = torch.from_numpy(rng.rand(B, S, H).astype(np.float32))
+        A = -torch.from_numpy(np.exp(rng.rand(H) * np.log(16.0)).astype(
+            np.float32))
+    else:
+        dt = torch.nn.functional.softplus(_randn(rng, B, S, H))
+        A = -torch.exp(_randn(rng, H, scale=0.5))
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(SSD_CASES))
+def test_ssd_intra_chunk_matches_plain_on_card(case):
+    dev = _card()
+    B, S, H, G, N, P, Lc, steep = SSD_CASES[case]
+    args = [t.to(dev) for t in _ssd_inputs(np.random.RandomState(11), B, S,
+                                            H, G, N, P, steep)]
+    ops.reset_launches()
+    y, st = ops.ssd_intra_chunk(*args, Lc)
+    assert ops.LAUNCHES["ssd_intra_chunk"] == 1
+    y_want, st_want = ref.ssd_intra_chunk_ref(*args, Lc)
+    assert y.shape == (B, S, H, P) and st.shape == (B, S // Lc, H, N, P)
+    assert _allclose(y, y_want, TOL_SSD) and _allclose(st, st_want, TOL_SSD)
+    y_cpu, st_cpu = ops.ssd_intra_chunk(*(t.cpu() for t in args), Lc)
+    assert _allclose(y, y_cpu, TOL_SSD) and _allclose(st, st_cpu, TOL_SSD)
+
+
+@pytest.mark.gpu
+def test_ssd_bf16_raises_on_card():
+    dev = _card()
+    args = [t.to(dev) for t in _ssd_inputs(np.random.RandomState(12), 1, 64,
+                                            4, 1, 16, 16, False)]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.ssd_intra_chunk(*args, 32, bf16=True)
+
+
+@pytest.mark.gpu
+def test_hybrid_serving_path_launches_kernels_on_card():
+    """zamba2-2.7b at full width and depth (bf16, random weights): one
+    prefill launches the SSD kernel once per mamba layer (54) and flash
+    attention once per shared-block application (9); each decode step
+    launches decode attention 9 times and nothing else."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_params
+    from repro_torch.models import model as M
+    from repro_torch.serve.decode import make_decode_step, prefill_step
+    dev = _card()
+    cfg = get_config("zamba2-2.7b")
+    G = cfg.n_layers // cfg.attn_period
+    params = build_params(cfg, seed=0, device=dev)
+    toks = torch.from_numpy(np.random.RandomState(13).randint(
+        0, cfg.vocab_size, (2, 512)).astype(np.int32)).to(dev)
+    with torch.no_grad():
+        ops.reset_launches()
+        lg = prefill_step(params, cfg, {"tokens": toks})
+        prefill = dict(ops.LAUNCHES)
+        cache = M.init_cache(params, cfg, 2, 64)
+        step = make_decode_step(cfg)
+        tok = torch.argmax(lg, -1).to(torch.int32)
+        ops.reset_launches()
+        for t in range(3):
+            tok, cache = step(params, tok, cache, t)
+        torch.cuda.synchronize()
+    assert bool(torch.isfinite(lg.float()).all())
+    assert prefill["ssd_intra_chunk"] == cfg.n_layers == 54
+    assert prefill["flash_attention"] == G == 9
+    assert prefill["decode_attention"] == 0
+    assert ops.LAUNCHES["decode_attention"] == 3 * G
+    assert ops.LAUNCHES["ssd_intra_chunk"] == ops.LAUNCHES[
+        "flash_attention"] == 0
+
+
+@pytest.mark.gpu
+def test_hybrid_smoke_card_matches_cpu():
+    """The zamba2 smoke (fp32) on the card against the CPU: logits of two
+    SSD chunks within 1e-4 x max|logit|, and 8 greedy decode steps from
+    ``init_cache`` with identical tokens."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.serve import build_params
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+    dev = _card()
+    cfg = get_smoke("zamba2-2.7b")
+    params = build_params(cfg, seed=2, device="cpu")
+    gpu_params = tree_map(lambda t: t.to(dev), params)
+    toks = torch.from_numpy(np.random.RandomState(14).randint(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32))
+    runs = []
+    for p, d in ((gpu_params, dev), (params, "cpu")):
+        with torch.no_grad():
+            full, _ = M.logits(p, cfg, {"tokens": toks.to(d)})
+            cache = M.init_cache(p, cfg, 2, 16)
+            tok, lgs = toks[:, 0].to(d), []
+            for t in range(8):
+                lg, cache = M.decode(p, cfg, tok, cache, t)
+                lgs.append(lg.cpu())
+                tok = torch.argmax(lg, -1)
+        runs.append((full.cpu(), torch.stack(lgs)))
+    for a, b in zip(*runs):
+        assert _maxerr(a, b) <= 1e-4 * max(float(b.abs().max()), 1.0)
+    assert torch.equal(runs[0][1].argmax(-1), runs[1][1].argmax(-1))

@@ -60,7 +60,9 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
                 "configs.yi_6b", "configs.nemotron_4_15b",
                 "sharding.policy", "models.common", "models.ffn",
                 "models.attention", "models.transformer", "models.model",
-                "serve.decode", "serve.engine", "launch.serve"):
+                "serve.decode", "serve.engine", "launch.serve",
+                "configs.zamba2_2_7b", "kernels.ssd_chunk", "models.mamba2",
+                "models.hybrid"):
         assert f"repro_torch.{mod}" in r.stdout.split(), mod
 
 
