@@ -5,8 +5,12 @@ causal, sliding-window or full attention with an online softmax over kv
 tiles and fp32 running max, denominator and accumulator.  It reads q in the
 model's ``(B, S, H, hd)`` layout and k/v in ``(B, S, K, hd)``, mapping q
 head ``h`` to kv head ``h // (H // K)``, so neither the reference wrapper's
-transpose nor the GQA copy is made.  The public wrapper, which dispatches
-CPU tensors to the plain version, is ``kernels.ops.flash_attention``.
+transpose nor the GQA copy is made.  Two routes by dtype: fp32 runs IEEE
+fp32 FMAs on the CUDA cores (any head dim up to 128); bf16 runs on the
+tensor cores (``mma.sync`` m16n8k16 with fp32 accumulation, ``ldmatrix``,
+a ``cp.async`` double-buffered kv ring) and takes head dims that are
+multiples of 16 up to 128.  The public wrapper, which dispatches CPU
+tensors to the plain version, is ``kernels.ops.flash_attention``.
 """
 from __future__ import annotations
 
@@ -24,7 +28,12 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = _build.library("flash_attention")
+    return bind(_build.library("flash_attention"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from
+    ``csrc/flash_attention.cu``."""
     lib.flash_attention.argtypes = [_P] * 4 + [_I] * 7 + [_F, _I, _P]
     lib.flash_attention.restype = _I
     lib.flash_attention_max_hd.restype = _I
@@ -35,8 +44,9 @@ def _lib() -> ctypes.CDLL:
 
 def launch(q, k, v, *, causal: bool = True, window: int = 0):
     """One launch on the current stream.  q (B, S, H, hd), k/v (B, S, K,
-    hd) with K dividing H: contiguous CUDA tensors of one dtype (fp32 or
-    bf16) on one device.  Returns (B, S, H, hd) in that dtype."""
+    hd) with K dividing H: contiguous CUDA tensors of one dtype (fp32, or
+    bf16 with hd a multiple of 16) on one device.  Returns (B, S, H, hd) in
+    that dtype."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"flash_attention: q and k must be 4-D, got "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
@@ -59,8 +69,17 @@ def launch(q, k, v, *, causal: bool = True, window: int = 0):
     if hd > lib.flash_attention_max_hd():
         raise ValueError(f"flash_attention: head dim {hd} exceeds the "
                          f"kernel's {lib.flash_attention_max_hd()}")
+    if q.dtype == torch.bfloat16 and hd % 16:
+        raise ValueError(f"flash_attention: the bf16 kernel takes head dims "
+                         f"that are multiples of 16, got {hd}")
+    if q.dtype == torch.bfloat16 and S * K * hd >= 2 ** 31:
+        raise ValueError(f"flash_attention: the bf16 kernel addresses a "
+                         f"batch row of k/v with 32-bit offsets; S * K * hd "
+                         f"= {S * K * hd} is too large")
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
+    # the bf16 route copies 16-byte rows; a view may start off that grain
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

@@ -19,7 +19,11 @@ recurrence reads.
 The two differentiable kernels carry a ``torch.autograd.Function`` whose
 backward is the closed-form backward kernel (on the CPU its plain
 version), as the reference's ``jax.custom_vjp`` does: ``LaneMLP2`` for the
-lane-MLP and ``DistillRows`` for the Eq. 5 row loss.
+lane-MLP and ``DistillRows`` for the Eq. 5 row loss.  The three
+forward-only kernels (flash attention, decode attention, the SSD block)
+refuse a CUDA input that requires grad while grad is enabled, rather than
+return an output detached from the graph; on the CPU their plain versions
+stay differentiable.
 """
 from __future__ import annotations
 
@@ -36,6 +40,16 @@ LAUNCHES = {"lane_mlp_fwd": 0, "lane_mlp_bwd": 0, "int8_matmul": 0,
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _refuse_grad(what: str, *ts: torch.Tensor) -> None:
+    """Raise where a forward-only kernel would silently cut the graph."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no backward until ROADMAP.md "
+            f"Queue 1 item 8 settles the LM training route, so its output "
+            f"would be detached from autograd; call it under "
+            f"torch.no_grad() or with inputs that do not require grad")
 
 
 def _on_cuda(x: torch.Tensor, what: str) -> bool:
@@ -254,6 +268,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     if not _on_cuda(q, "flash_attention"):
         return ref.flash_attention_model(q, k, v, causal=causal,
                                          window=window)
+    _refuse_grad("flash_attention", q, k, v)
     from repro_torch.kernels import flash_attention as fa
     out = fa.launch(q.contiguous(), k.contiguous(), v.contiguous(),
                     causal=causal, window=window)
@@ -274,6 +289,7 @@ def decode_attention(q, k, v, slot_pos, pos: int, *, window: int = 0):
     if not _on_cuda(q, "decode_attention"):
         return ref.decode_attention_cache(q, k, v, slot_pos, pos,
                                           window=window)
+    _refuse_grad("decode_attention", q, k, v)
     from repro_torch.kernels import decode_attention as da
     out = da.launch(q.contiguous(), k.contiguous(), v.contiguous(),
                     slot_pos.to(torch.int32).contiguous(), int(pos),
@@ -301,6 +317,7 @@ def ssd_intra_chunk(x, dt, A, Bm, Cm, chunk: int, *, bf16: bool = False):
             "ssd_intra_chunk: the bf16 SSD (cfg.ssd_bf16) has no kernel on "
             "the card yet; it comes with its own bound (ROADMAP.md, Queue 1, "
             "kernel speed)")
+    _refuse_grad("ssd_intra_chunk", x, dt, A, Bm, Cm)
     from repro_torch.kernels import ssd_chunk
     out = ssd_chunk.launch(*(t.contiguous() for t in (x, dt, A, Bm, Cm)),
                            int(chunk))

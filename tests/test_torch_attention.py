@@ -85,6 +85,32 @@ def test_ops_flash_attention_model_layout_and_gqa(H, K, window):
     assert ops.LAUNCHES["flash_attention"] == 0     # the plain path
 
 
+def test_ops_flash_attention_backpropagates_on_cpu():
+    """On the CPU the wrapper's plain version stays differentiable (the
+    card's forward-only kernel refuses grad instead): the gradients of q, k
+    and v match ``jax.grad`` through the reference's plain attention on
+    GQA-expanded heads."""
+    B, S, H, K, hd, window = 2, 48, 4, 2, 16, 20
+    q = _randn(30, B, S, H, hd)
+    k, v = _randn(31, B, S, K, hd), _randn(32, B, S, K, hd)
+    w = _randn(33, B, S, H, hd)
+
+    def jloss(q, k, v):
+        out = jflash_ref(*(t.transpose(0, 2, 1, 3) for t in (
+            q, jgqa(k, H, K), jgqa(v, H, K))), causal=True, window=window)
+        return jnp.sum(out.transpose(0, 2, 1, 3) * w)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out = ops.flash_attention(*ts, causal=True, window=window)
+    (out * torch.from_numpy(w)).sum().backward()
+    for t, g in zip(ts, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), atol=2e-5,
+                                   rtol=2e-5)
+    assert ops.LAUNCHES["flash_attention"] == 0     # the plain path
+
+
 def _slots(W, pos):
     sp = np.where(np.arange(W) <= pos, np.arange(W), -1).astype(np.int32)
     sp[3] = -1                                      # an empty slot inside

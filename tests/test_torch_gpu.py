@@ -211,6 +211,9 @@ def test_wrappers_count_launches_on_card():
 
 
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+# bf16 flash vs its plain version in fp32 on the same bf16 inputs: (atol,
+# rtol), chip_smoke.py's TOL_FLASH_BF16_F32
+FLASH_BF16_F32_TOL = (5e-3, 1e-2)
 
 
 def _allclose(got, want, tol):
@@ -229,23 +232,85 @@ def _attn_inputs(rng, dev, dtype, *shapes):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_matches_plain_on_card(dtype):
     """The kernel against its plain version on the same card tensors, at
-    the serving shapes (internlm2-1.8b heads: H 16, K 8, hd 128) and a
-    ragged S with small heads, causal with and without a window and full;
-    the reference's bounds (tests/test_kernels.py)."""
+    the serving shapes (internlm2-1.8b heads: H 16, K 8, hd 128) and
+    ragged S with small heads, causal with and without a window (48, and
+    100: not a multiple of the 64-key tile) and full; the reference's
+    bounds (tests/test_kernels.py).  bf16 is also held to the plain
+    version in fp32 on the same bf16 inputs, at a bound near its own
+    rounding."""
     dev = _card()
     rng = np.random.RandomState(7)
     for B, S, H, K, hd in ((1, 128, 16, 8, 128), (1, 32, 16, 8, 128),
                            (1, 200, 4, 2, 64), (2, 77, 4, 4, 32),
-                           (2, 160, 32, 32, 80)):      # zamba2's MHA, hd 80
+                           (2, 160, 32, 32, 80),       # zamba2's MHA, hd 80
+                           (1, 300, 8, 2, 80)):
         q, k, v = _attn_inputs(rng, dev, dtype, (B, S, H, hd),
                                (B, S, K, hd), (B, S, K, hd))
-        for causal, window in ((True, 0), (True, 48), (False, 0)):
+        for causal, window in ((True, 0), (True, 48), (True, 100),
+                               (False, 0)):
             got = ops.flash_attention(q, k, v, causal=causal, window=window)
             want = ops.flash_attention(q.cpu(), k.cpu(), v.cpu(),
                                        causal=causal, window=window)
             assert got.dtype == dtype
             assert _allclose(got, want, ATTN_TOL[dtype]), \
                 (B, S, H, K, hd, causal, window)
+            if dtype == torch.bfloat16:
+                want = ops.flash_attention(*(t.cpu().float() for t in
+                                             (q, k, v)), causal=causal,
+                                           window=window)
+                atol, rtol = FLASH_BF16_F32_TOL
+                err = (got.float().cpu() - want).abs()
+                assert bool((err <= atol + rtol * want.abs()).all()), \
+                    (B, S, H, K, hd, causal, window, float(err.max()))
+
+
+@pytest.mark.gpu
+def test_flash_attention_bf16_refuses_head_dim_off_16_on_card():
+    """The bf16 route runs on m16n8k16 tensor-core tiles: hd 72 raises,
+    while fp32 takes it."""
+    dev = _card()
+    q, k, v = _attn_inputs(np.random.RandomState(17), dev, torch.float32,
+                           (1, 64, 2, 72), (1, 64, 2, 72), (1, 64, 2, 72))
+    assert ops.flash_attention(q, k, v).shape == (1, 64, 2, 72)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        ops.flash_attention(*(t.bfloat16() for t in (q, k, v)))
+
+
+def _forward_only_calls(dev):
+    """Each forward-only wrapper with small card inputs: name -> (inputs,
+    call)."""
+    rng = np.random.RandomState(18)
+    q, k, v = _attn_inputs(rng, dev, torch.float32, (1, 32, 4, 32),
+                           (1, 32, 2, 32), (1, 32, 2, 32))
+    dq, dk, dv = _attn_inputs(rng, dev, torch.float32, (2, 4, 32),
+                              (2, 16, 2, 32), (2, 16, 2, 32))
+    sp = torch.arange(16, dtype=torch.int32, device=dev)
+    ssd = [t.to(dev) for t in _ssd_inputs(rng, 1, 64, 4, 1, 16, 16, False)]
+    return {
+        "flash_attention": ([q, k, v], lambda a: ops.flash_attention(*a)),
+        "decode_attention": ([dq, dk, dv], lambda a: ops.decode_attention(
+            *a, sp, 15)),
+        "ssd_intra_chunk": (ssd, lambda a: ops.ssd_intra_chunk(*a, 32))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
+                                  "ssd_intra_chunk"])
+def test_forward_only_kernels_refuse_autograd_on_card(name):
+    """A kernel without a backward raises when an input requires grad,
+    instead of returning an output detached from the graph; under
+    ``torch.no_grad()`` the same call launches once."""
+    dev = _card()
+    args, call = _forward_only_calls(dev)[name]
+    args[0].requires_grad_(True)
+    ops.reset_launches()
+    with pytest.raises(RuntimeError, match=f"{name}: .*no backward"):
+        call(args)
+    assert ops.LAUNCHES[name] == 0
+    with torch.no_grad():
+        call(args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[name] == 1
 
 
 @pytest.mark.gpu

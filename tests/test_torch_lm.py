@@ -2,6 +2,8 @@
 the CPU, at the smoke configs' widths: norms, RoPE and the three FFNs;
 ``decoder_logits`` with the kernel switch on and off, the cache prefill
 and 16 decode steps on the internlm2 and nemotron smoke configs (1e-4);
+windowed decode through an 8-slot ring (28 steps, also on the zamba2
+smoke);
 the continuous-batching engine (identical tokens and ``EngineStats``);
 the CLI on the CPU; the four full configs' parameter counts; the
 registry.  JAX params cross with ``convert.to_torch``; other inputs come
@@ -202,6 +204,42 @@ def test_prefill_cache_and_16_decode_steps_match(models, arch, switch):
         tok = np.argmax(np.asarray(jl), -1).astype(np.int32)
     for got, want in zip(tcache, jcache):
         _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("window", [8, 5])
+@pytest.mark.parametrize("arch", SMOKES + ("zamba2-2.7b",))
+def test_windowed_decode_ring_matches_jax(models, arch, window):
+    """Greedy decode from ``init_cache`` into 8 slots, 28 steps so the ring
+    slot ``pos % W`` wraps three times; window 8 fills the ring, window 5
+    leaves slots that the ``slot_pos > pos - window`` mask must drop.  The
+    port's ``decode`` against the reference's (jitted) on the same weights:
+    logits within 1e-4 x max|logit| and identical greedy tokens at every
+    step."""
+    if arch in models:
+        jc, tc, jp, tp = models[arch]
+    else:
+        jc, tc = _cfgs(arch)
+        jp = jax.jit(lambda key: jinit(JM.schema(jc), key, jnp.float32))(
+            jax.random.PRNGKey(0))
+        tp = convert.to_torch(jax.tree.map(np.asarray, jp), device="cpu",
+                              float_dtype=None)
+    B, W = 2, 8
+    jcache = JM.init_cache(jp, jc, B, W)
+    tcache = M.init_cache(tp, tc, B, W)
+    jdec = jax.jit(lambda p, tok, c, pos: JM.decode(p, jc, tok, c, pos,
+                                                   window))
+    tok = _tokens(5, 1, B, jc.vocab_size)[0]
+    for pos in range(28):
+        jl, jcache = jdec(jp, jnp.asarray(tok), jcache, jnp.int32(pos))
+        tl, tcache = M.decode(tp, tc, torch.from_numpy(tok), tcache, pos,
+                              window=window)
+        jl = np.asarray(jl)
+        assert np.abs(tl.numpy() - jl).max() <= TOL * max(
+            float(np.abs(jl).max()), 1.0), pos
+        nxt = np.argmax(jl, -1).astype(np.int32)
+        assert np.array_equal(np.argmax(tl.numpy(), -1), nxt), pos
+        tok = nxt
+    assert ops.LAUNCHES["decode_attention"] == 0    # the plain path
 
 
 def _requests(module, n, vocab, max_new=6):
