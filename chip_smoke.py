@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--time-only]
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
@@ -22,11 +22,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
    flash-attention wrapper at eight (B, S, H, K, hd) shapes (zamba2's MHA
    at hd 80, ragged S at hd 32 and 64 and S 4096 among them), causal with
    window 0, 128 and 100 (inside a kv tile) and full, and the
-   decode-attention wrapper at internlm2's and zamba2's heads, W 64 and
-   1024 with empty slots, window 0 and 48, fp32 within 2e-5 and bf16
-   within 3e-2 (the reference's bounds), and with every slot empty (0);
-   bf16 flash also against its plain version in fp32 on the same bf16
-   inputs within 5e-3 + 1e-2 |want| (TOL_FLASH_BF16_F32).
+   decode-attention wrapper at four GQA ratios (internlm2-1.8b's 2,
+   zamba2's 1 at hd 80, 6 and 8), W 64, 1000 and 1024 with empty slots,
+   window 0 and 48, fp32 within 2e-5 and bf16 within 3e-2 (the
+   reference's bounds), and with every slot empty (0); bf16 flash and
+   decode also against their plain versions in fp32 on the same bf16
+   inputs, within 5e-3 + 1e-2 |want| (TOL_FLASH_BF16_F32) and 1e-4 + 1e-2
+   |want| (TOL_DECODE_BF16_F32).
    Then the SSD intra-chunk wrapper within 2e-4 (the reference's bound) at
    zamba2's width (B 2, S 512, H 80, N = P = 64, Lc 256), a ragged grouped
    chunk (S 100, H 6, G 2) and per-step log-decays down to -16.
@@ -45,7 +47,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (every fold step one probe launch) within 0.03 of the plain probe.
 5. time   — kernel, plain-version and library times (CUDA events over
    CUDA-graph replays) and the work bound at the serving bucket (256) and
-   the training batch (128); each stage's steps/s as phase 4's run timed
+   the training batch (128), the lane-MLP forward also at bucket 16 and
+   with training's saved pre-activations; each stage's steps/s as phase 4's run timed
    it, and one more ``run_apcvfl`` epoch on the card with each stage's
    launches per step and a profiler split; then the served stream's
    rows/s, fp32, int8, int8, fp32 by warmed engines.
@@ -67,7 +70,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    and the prefill and decode logits agree within 1e-4 x max|logit|, also
    against the plain ``_sdpa`` sites the CPU runs with the switch off.
    Phase 5 times both attention kernels at the engine's decode shape and
-   at the ``prefill_step`` shape, and flash at zamba2's (hd 80).
+   at the ``prefill_step`` shape, and both at zamba2's heads (hd 80).
 8. zamba  — the hybrid's serving path: zamba2-2.7b at full width and depth
    in bf16, ``prefill_step`` at B 2, S 2048 (exactly 54 SSD and 9 flash
    launches a call) and greedy decode through ``make_decode_step`` from
@@ -166,9 +169,18 @@ FLASH_SHAPES = ((1, 128, 16, 8, 128), (2, 2048, 16, 8, 128),
 # prefill_step's size; the last is internlm2's heads at twice its length
 # (causal, window); a window of 100 ends inside a 64-key tile
 FLASH_MASKS = ((True, 0), (True, 128), (True, 100), (False, 0))
-DECODE_W = (64, 1024)
-# decode attention's (H, K, hd): internlm2-1.8b's GQA, zamba2's MHA
-DECODE_HEADS = ((16, 8, 128), (32, 32, 80))
+DECODE_W = (64, 1000, 1024)
+# decode attention's (H, K, hd): internlm2-1.8b's GQA (2 q heads a kv
+# head), zamba2's MHA, internlm2-20b's and nemotron-4-15b's 6, yi-6b's 8
+DECODE_HEADS = ((16, 8, 128), (32, 32, 80), (48, 8, 128), (32, 4, 128))
+DECODE_WINDOWS = (0, 48)
+# bf16 decode attention also against its plain version in fp32 on the same
+# bf16 inputs: |got - want| <= atol + rtol * |want|.  The kernel keeps its
+# scores, softmax and sums in fp32, so what is left is the rounding of the
+# output to bf16 (at most 2^-8 relative); the bound lies between the
+# correct kernel's largest reading and those of planted faults
+# (tools/decode_planted_faults.py, PERF.md)
+TOL_DECODE_BF16_F32 = (1e-4, 1e-2)
 # the SSD intra-chunk block vs its plain version, the reference's allclose
 # bound (tests/test_kernels.py::test_ssd_intra_chunk_kernel, atol = rtol)
 TOL_SSD = 2e-4
@@ -499,7 +511,8 @@ def check_attention_kernels(gen, err: dict) -> None:
         for dt in TOL_ATTN:
             err[f"{name}/{dt}"] = 0.0
     ratio_key = "flash_attention/bf16_vs_f32_ratio"
-    err[ratio_key] = 0.0
+    dratio_key = "decode_attention/bf16_vs_f32_ratio"
+    err[ratio_key] = err[dratio_key] = 0.0
     calls = {"flash_attention": 0, "decode_attention": 0}
     ops.reset_launches()
     for dname, dt in _attn_dtypes().items():
@@ -544,7 +557,7 @@ def check_attention_kernels(gen, err: dict) -> None:
             sp = _slot_pos(W, pos)
             q = _rand(gen, (B, H, hd)).to(dt)
             kc, vc = (_rand(gen, (B, W, K, hd)).to(dt) for _ in range(2))
-            for window in (0, 48):
+            for window in DECODE_WINDOWS:
                 got = ops.decode_attention(q, kc, vc, sp, pos,
                                            window=window)
                 calls["decode_attention"] += 1
@@ -559,6 +572,17 @@ def check_attention_kernels(gen, err: dict) -> None:
                     ("decode", dname, H, hd, W, window, e))
                 key = f"decode_attention/{dname}"
                 err[key] = max(err[key], e)
+                if dt == torch.bfloat16:
+                    want = ref.decode_attention_cache(
+                        q.float(), kc.float(), vc.float(), sp, pos,
+                        window=window)
+                    r = bound_ratio(got.float(), want, *TOL_DECODE_BF16_F32)
+                    log(f"decode_attention bf16 vs fp32 plain B={B} H={H} "
+                        f"K={K} hd={hd} W={W} pos={pos} window={window}: "
+                        f"bound ratio {r:.3f}")
+                    _require(r <= 1.0, ("decode bf16 vs fp32", H, K, hd, W,
+                                        window, r))
+                    err[dratio_key] = max(err[dratio_key], r)
         # every slot empty: the row is 0 in the kernel and its plain version
         W0 = DECODE_W[0]
         sp = torch.full((W0,), -1, dtype=torch.int32, device="cuda")
@@ -917,18 +941,11 @@ def phase_time() -> dict:
         f"{TRAIN_B}) ===")
     gen = torch.Generator().manual_seed(3)
     B = BUCKET
-    sets = {"lane_mlp_fwd": [], "int8_matmul": []}
-    for name, (din, h, dz) in ENCODERS.items():
-        x, w0, b0, w1, b1 = _mlp_inputs(gen, B, din, h, dz)
-        flops = 2.0 * B * (din * h + h * dz)
-        nbytes = 4.0 * (B * din + din * h + h + h * dz + dz + B * dz)
-        sets["lane_mlp_fwd"].append(dict(
-            shape=f"{name} {din}->{h}->{dz} B={B}", flops=flops,
-            bytes=nbytes,
-            kernel=lambda a=(x, w0, b0, w1, b1): ops.fused_mlp2(*a),
-            plain=lambda a=(x, w0, b0, w1, b1): ref.mlp2_ref(*a),
-            library=lambda a=(x, w0, b0, w1, b1): torch.addmm(
-                a[4], F.selu(torch.addmm(a[2], a[0], a[1])), a[3])))
+    sets = {"lane_mlp_fwd": _lane_mlp_fwd_set(gen, ENCODERS, B),
+            "lane_mlp_fwd_bucket16": _lane_mlp_fwd_set(gen, ENCODERS, 16),
+            "lane_mlp_fwd_train": _lane_mlp_fwd_set(gen, AE_SHAPES, TRAIN_B,
+                                                    save=True),
+            "int8_matmul": []}
     for name, (d, c, act) in INT8_LAYERS.items():
         x, w_q, scale, b = _int8_inputs(gen, B, d, c)
         flops = 2.0 * B * d * c
@@ -969,6 +986,37 @@ def phase_time() -> dict:
             "library_ms": None if None in lib else sum(lib),
             "bound_ms": bound, "bound_by": by, "per_shape": per_shape}
     return res
+
+
+def _lane_mlp_fwd_set(gen, shapes: dict, B: int, save: bool = False) -> list:
+    """Timing items of the lane-MLP forward at ``B`` rows over ``shapes``
+    (din, h, dz): the wrapper as serving calls it, or with ``save`` the
+    launch training's ``LaneMLP2`` makes (a1 and a2 written too, counted
+    in the bytes).  The library calls are ``addmm``, ``F.selu``,
+    ``addmm``, which also leave a1 and a2."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import lane_mlp, ops, ref
+    items = []
+    for name, (din, h, dz) in shapes.items():
+        a = _mlp_inputs(gen, B, din, h, dz)
+        if save:
+            kernel = lambda s=tuple(t[None] for t in a): lane_mlp.launch(
+                *s, save=True)
+            plain = lambda a=a: ref.mlp2_fwd_ref(*a)
+        else:
+            kernel = lambda a=a: ops.fused_mlp2(*a)
+            plain = lambda a=a: ref.mlp2_ref(*a)
+        items.append(dict(
+            shape=f"{name} {din}->{h}->{dz} B={B}" + (" save" if save
+                                                      else ""),
+            flops=2.0 * B * (din * h + h * dz),
+            bytes=4.0 * (B * din + din * h + h + h * dz + dz + B * dz
+                         + (B * (h + dz) if save else 0)),
+            kernel=kernel, plain=plain,
+            library=lambda a=a: torch.addmm(
+                a[4], F.selu(torch.addmm(a[2], a[0], a[1])), a[3])))
+    return items
 
 
 def _library_mlp_bwd(g, x, a1, a2, w0, w1):
@@ -1050,7 +1098,7 @@ def _attention_kernel_sets(gen) -> dict:
     one-prompt prefill (B 1, S 128) and at zamba2's shared block in its
     ``prefill_step`` (B 2, S 2048, H = K = 32, hd 80); decode attention at
     the engine's batch of 8 against its 1024-slot cache with slots 0..511
-    written.  Operations
+    written, and apart at zamba2's heads (H = K = 32, hd 80).  Operations
     count the pairs the mask keeps; bytes count q, k, v and out once (for
     decode, the written slots' K/V rows)."""
     import torch
@@ -1077,24 +1125,26 @@ def _attention_kernel_sets(gen) -> dict:
             library=lambda a=(q, k, v): F.scaled_dot_product_attention(
                 *(t.transpose(1, 2) for t in a), is_causal=True,
                 enable_gqa=True))]
-    H, K, hd = 16, 8, 128
     B, W, pos = LM["batch"], LM["slots"], LM["slots"] // 2 - 1
     sp = torch.where(torch.arange(W) <= pos, torch.arange(W), -1).to(
         torch.int32).cuda()
     valid = int((sp >= 0).sum())
-    q = _rand(gen, (B, H, hd)).to(bf16)
-    kc, vc = (_rand(gen, (B, W, K, hd)).to(bf16) for _ in range(2))
     mask = (sp >= 0) & (sp <= pos)
-    sets["decode_attention"] = [dict(
-        shape=f"B={B} W={W} valid={valid} H={H} K={K} hd={hd} bf16",
-        flops=4.0 * B * H * hd * valid,
-        bytes=2.0 * (2 * B * H * hd + 2 * B * valid * K * hd) + 4.0 * W,
-        peak=PEAK_BF16_FLOPS,
-        kernel=lambda: ops.decode_attention(q, kc, vc, sp, pos),
-        plain=lambda: ref.decode_attention_cache(q, kc, vc, sp, pos),
-        library=lambda: F.scaled_dot_product_attention(
-            q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
-            attn_mask=mask[None, None, None], enable_gqa=True))]
+    for key, (H, K, hd) in (("decode_attention", (16, 8, 128)),
+                            ("decode_attention_zamba2", (32, 32, 80))):
+        q = _rand(gen, (B, H, hd)).to(bf16)
+        kc, vc = (_rand(gen, (B, W, K, hd)).to(bf16) for _ in range(2))
+        sets[key] = [dict(
+            shape=f"B={B} W={W} valid={valid} H={H} K={K} hd={hd} bf16",
+            flops=4.0 * B * H * hd * valid,
+            bytes=2.0 * (2 * B * H * hd + 2 * B * valid * K * hd) + 4.0 * W,
+            peak=PEAK_BF16_FLOPS,
+            kernel=lambda a=(q, kc, vc): ops.decode_attention(*a, sp, pos),
+            plain=lambda a=(q, kc, vc): ref.decode_attention_cache(
+                *a, sp, pos),
+            library=lambda a=(q, kc, vc): F.scaled_dot_product_attention(
+                a[0][:, :, None], a[1].transpose(1, 2), a[2].transpose(1, 2),
+                attn_mask=mask[None, None, None], enable_gqa=True))]
     return sets
 
 
@@ -1692,13 +1742,32 @@ def zamba_checks() -> dict:
             "decode_vs_forward_launches": dvf_counts}
 
 
-def main() -> int:
+def _smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--time-only", action="store_true",
+                    help="build, then only phase 5's kernel timing; its "
+                         "rows as one JSON line (to time two trees' "
+                         "kernels in one call, each with this script)")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card on this host; nothing was run",
               file=sys.stderr)
         return 1
     from repro_torch.kernels import ops
+    if args.time_only:
+        phase_build()
+        print(json.dumps({"timing": phase_time(), "device": _smi()}))
+        return 0
 
     import time
     t0 = time.perf_counter()
@@ -1756,17 +1825,13 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
         if name == "lane_mlp_bwd":          # its check's bound is relative
             kernels[-1]["max_rel_err"] = errs["lane_mlp_bwd_rel"]
-        if "attention" in name:             # fp32 above, bf16 here
+        if "attention" in name:             # fp32 above, bf16 here; bf16
             kernels[-1]["max_abs_err_bf16"] = errs[f"{name}/bfloat16"]
-        if name == "flash_attention":       # bf16 vs fp32 plain, <= 1
-            kernels[-1]["bf16_bound_ratio"] = errs[
-                "flash_attention/bf16_vs_f32_ratio"]
+            kernels[-1]["bf16_bound_ratio"] = errs[   # vs fp32 plain, <= 1
+                f"{name}/bf16_vs_f32_ratio"]
         if name == "ssd_intra_chunk":       # against the plain version on CPU
             kernels[-1]["max_abs_err_vs_cpu"] = errs["ssd_intra_chunk_vs_cpu"]
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = _smi()
     stream = {m: {k: serve[m][k] for k in ("rows_per_s", "latency_ms_p50",
                                            "latency_ms_p99")}
               for m in ("none", "int8")}

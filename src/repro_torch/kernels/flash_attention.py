@@ -78,8 +78,7 @@ def launch(q, k, v, *, causal: bool = True, window: int = 0):
                          f"= {S * K * hd} is too large")
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
-    # the bf16 route copies 16-byte rows; a view may start off that grain
-    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
+    q, k, v = (_launch.aligned16(t) for t in (q, k, v))
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

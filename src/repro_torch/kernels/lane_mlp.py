@@ -4,11 +4,13 @@
 Counterparts of ``repro.kernels.lane_mlp``: ``launch`` runs
 ``_fwd_kernel``, ``selu(x @ w0 + b0) @ w1 + b1``, optionally selu'd, for
 each lane of an ``(L, B, din)`` stack, with the hidden activation kept on
-chip; ``save=True`` also returns the pre-activations ``a1`` and ``a2``
-the backward needs.  ``launch_bwd`` runs ``_bwd_kernel``, the closed-form
-backward, and sums its per-tile weight partials.  The public wrappers
-(``kernels.ops``: ``fused_mlp2``, ``fused_lane_mlp2`` and the autograd
-Function behind them) dispatch CPU tensors to the plain versions.
+chip (each tile of rows goes to a cluster of blocks that split the hidden
+and output columns and exchange the hidden activation through distributed
+shared memory); ``save=True`` also returns the pre-activations ``a1`` and
+``a2`` the backward needs.  ``launch_bwd`` runs ``_bwd_kernel``, the
+closed-form backward, and sums its per-tile weight partials.  The public
+wrappers (``kernels.ops``: ``fused_mlp2``, ``fused_lane_mlp2`` and the
+autograd Function behind them) dispatch CPU tensors to the plain versions.
 """
 from __future__ import annotations
 
@@ -22,13 +24,23 @@ from repro_torch.kernels import _build, _launch
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
+# blocks an SM the cluster size aims for: one 4-warp block of a row tile
+# on every SM where the rows allow
+BLOCKS_PER_SM = 1
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = _build.library("lane_mlp_fwd")
-    lib.lane_mlp_fwd.argtypes = [_P] * 8 + [_I] * 6 + [_P]
+    return bind(_build.library("lane_mlp_fwd"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from
+    ``csrc/lane_mlp_fwd.cu``."""
+    lib.lane_mlp_fwd.argtypes = [_P] * 8 + [_I] * 7 + [_P]
     lib.lane_mlp_fwd.restype = _I
-    lib.lane_mlp_fwd_max_din.restype = _I
     lib.lane_mlp_fwd_max_hidden.restype = _I
+    lib.lane_mlp_fwd_tile_rows.restype = _I
     lib.lane_mlp_fwd_error_string.argtypes = [_I]
     lib.lane_mlp_fwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -51,7 +63,8 @@ def launch(xs, w0s, b0s, w1s, b1s, *, final_act: bool = False,
     """One kernel launch on the current stream.  xs (L, B, din), w0s
     (L, din, h), b0s (L, h), w1s (L, h, dz), b1s (L, dz): contiguous fp32
     CUDA tensors on one device, B >= 1.  Returns ``out`` (L, B, dz), or
-    ``(out, a1, a2)`` with ``save``."""
+    ``(out, a1, a2)`` with ``save``.  Raises where the card refuses the
+    cluster launch."""
     if xs.dim() != 3:
         raise ValueError(f"xs must be (L, B, din), got {tuple(xs.shape)}")
     L, B, din = xs.shape
@@ -68,11 +81,12 @@ def launch(xs, w0s, b0s, w1s, b1s, *, final_act: bool = False,
     if h > lib.lane_mlp_fwd_max_hidden():
         raise ValueError(f"hidden width {h} exceeds the kernel's "
                          f"{lib.lane_mlp_fwd_max_hidden()}")
-    if din > lib.lane_mlp_fwd_max_din():
-        raise ValueError(f"input width {din} exceeds the kernel's "
-                         f"{lib.lane_mlp_fwd_max_din()}")
     if B == 0:
         raise ValueError("lane_mlp.launch: empty batch")
+    tiles = -(-B // lib.lane_mlp_fwd_tile_rows())
+    cluster = _launch.cluster_size(L * tiles, dev, BLOCKS_PER_SM)
+    # rows are copied 16 bytes at a time where their widths allow
+    xs, w0s, w1s = (_launch.aligned16(t) for t in (xs, w0s, w1s))
     out = torch.empty((L, B, dz), dtype=f32, device=dev)
     a1 = torch.empty((L, B, h), dtype=f32, device=dev) if save else None
     a2 = torch.empty((L, B, dz), dtype=f32, device=dev) if save else None
@@ -81,7 +95,8 @@ def launch(xs, w0s, b0s, w1s, b1s, *, final_act: bool = False,
         rc = lib.lane_mlp_fwd(
             xs.data_ptr(), w0s.data_ptr(), b0s.data_ptr(), w1s.data_ptr(),
             b1s.data_ptr(), out.data_ptr(), ptr(a1), ptr(a2), L, B, din, h,
-            dz, int(bool(final_act)), torch.cuda.current_stream().cuda_stream)
+            dz, int(bool(final_act)), cluster,
+            torch.cuda.current_stream().cuda_stream)
     _launch.raise_on_error(rc, "lane_mlp_fwd launch",
                            lib.lane_mlp_fwd_error_string)
     return (out, a1, a2) if save else out

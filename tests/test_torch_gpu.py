@@ -33,6 +33,9 @@ AE_SHAPES = {"g1_active.enc": (5, 64, 128), "g1_active.dec": (128, 64, 5),
 INT8_LAYERS = {"l0_selu": (5, 256, "selu"), "l1": (256, 256, "none"),
                "head4": (256, 4, "none"), "head2": (256, 2, "none")}
 BATCHES = (16, 77, 256, 4096)
+# the lane-MLP forward's rows: one row, ragged tiles, the serving buckets,
+# the training batch and the 20000 rows core/pipeline.py encodes in a call
+FWD_BATCHES = (1, 7, 16, 77, 128, 256, 4096, 20000)
 
 
 def _card():
@@ -64,12 +67,42 @@ def _maxerr(a, b):
 @pytest.mark.parametrize("name", list(ENCODERS))
 def test_lane_mlp_fwd_matches_plain_on_card(name):
     dev = _card()
-    for B in BATCHES:
+    for B in FWD_BATCHES:
         arrs = _mlp(B, B, *ENCODERS[name], dev)
         for fa in (False, True):
             got = ops.fused_mlp2(*arrs, final_act=fa)
             want = ref.mlp2_ref(*arrs, final_act=fa)
             assert _maxerr(got, want) <= 1e-4, (name, B, fa)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(AE_SHAPES))
+def test_lane_mlp_fwd_lanes_save_and_final_act_on_card(name):
+    """Each training MLP (wide and narrow outputs: h 64-256, dz 5-384) over
+    one and two lanes, with and without the saved pre-activations and the
+    final SELU, at a ragged tile and the training batch."""
+    dev = _card()
+    for L, B in itertools.product((1, 2), (7, 128)):
+        arrs = _mlp(L * B, B, *AE_SHAPES[name], dev, lanes=(L,))
+        for fa, save in itertools.product((False, True), (False, True)):
+            got = lane_mlp.launch(*arrs, final_act=fa, save=save)
+            want = ref.mlp2_fwd_ref(*arrs, final_act=fa)
+            if not save:
+                got, want = (got,), want[:1]
+            for g, w in zip(got, want):
+                assert _maxerr(g, w) <= 1e-4, (name, L, B, fa, save)
+
+
+@pytest.mark.gpu
+def test_lane_mlp_fwd_repeats_bit_for_bit_on_card():
+    """No atomics and a fixed sum order: two launches give the same bits,
+    at a batch split over clusters of 8 blocks and at one of 1."""
+    dev = _card()
+    for B in (256, 20000):
+        arrs = _mlp(5, B, 384, 256, 256, dev)
+        runs = [ops.fused_mlp2(*arrs, final_act=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(*runs), B
 
 
 @pytest.mark.gpu
@@ -313,27 +346,140 @@ def test_forward_only_kernels_refuse_autograd_on_card(name):
     assert ops.LAUNCHES[name] == 1
 
 
+# bf16 decode vs its plain version in fp32 on the same bf16 inputs: (atol,
+# rtol), chip_smoke.py's TOL_DECODE_BF16_F32
+DECODE_BF16_F32_TOL = (1e-4, 1e-2)
+# decode's (H, K, hd): GQA ratios 2 (internlm2-1.8b), 1 (zamba2, hd 80), 6
+# (internlm2-20b, nemotron-4-15b), 8 (yi-6b), and the smokes' hd 64
+DECODE_HEADS = ((16, 8, 128), (32, 32, 80), (48, 8, 128), (32, 4, 128),
+                (4, 2, 64))
+
+
+def _prefix_slots(W, pos):
+    """Slots 0..pos written, four empty ones inside the prefix."""
+    sp = np.where(np.arange(W) <= pos, np.arange(W), -1)
+    sp[5:9] = -1
+    return torch.from_numpy(sp.astype(np.int32))
+
+
+def _ring_slots(W, steps):
+    """A ring of W slots after ``steps`` writes: slot w holds the last
+    position p < steps with p % W == w (not monotone once it wraps)."""
+    p = np.arange(steps)
+    sp = np.full(W, -1, np.int64)
+    sp[p % W] = p
+    return torch.from_numpy(sp.astype(np.int32))
+
+
+def _decode_check(dev, dtype, q, kc, vc, sp, pos, window, what):
+    """The wrapper on the card against the plain version on CPU copies in
+    the reference's bound, and bf16 also against the plain version in
+    fp32 on the same bf16 inputs."""
+    got = ops.decode_attention(q, kc, vc, sp.to(dev), pos, window=window)
+    want = ops.decode_attention(q.cpu(), kc.cpu(), vc.cpu(), sp, pos,
+                                window=window)
+    assert got.dtype == dtype
+    assert _allclose(got, want, ATTN_TOL[dtype]), what
+    if dtype == torch.bfloat16:
+        want = ops.decode_attention(*(t.cpu().float() for t in (q, kc, vc)),
+                                    sp, pos, window=window)
+        atol, rtol = DECODE_BF16_F32_TOL
+        err = (got.float().cpu() - want).abs()
+        assert bool((err <= atol + rtol * want.abs()).all()), \
+            (what, float(err.max()))
+    return got
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_matches_plain_on_card(dtype):
+    """GQA ratios 1, 2, 6 and 8 at W 64, 77, 1000 and 1024 (numbers of
+    slots that the cluster's split does not divide among them), pos 0,
+    W - 1 and inside, with and without a window; the reference's bounds,
+    and bf16 also near its own rounding against fp32."""
     dev = _card()
     rng = np.random.RandomState(8)
     B = 2
-    # internlm2's GQA at hd 128 and zamba2's MHA at hd 80
     for (H, K, hd), (W, pos) in itertools.product(
-            ((16, 8, 128), (32, 32, 80)), ((64, 40), (1024, 700))):
+            DECODE_HEADS, ((64, 40), (77, 76), (1000, 0), (1024, 700))):
         q, kc, vc = _attn_inputs(rng, dev, dtype, (B, H, hd),
                                  (B, W, K, hd), (B, W, K, hd))
-        sp = np.where(np.arange(W) <= pos, np.arange(W), -1)
-        sp[5:9] = -1                           # empty slots in the prefix
-        sp = torch.from_numpy(sp.astype(np.int32))
         for window in (0, 48):
-            got = ops.decode_attention(q, kc, vc, sp.to(dev), pos,
-                                       window=window)
-            want = ops.decode_attention(q.cpu(), kc.cpu(), vc.cpu(), sp, pos,
-                                        window=window)
-            assert got.dtype == dtype
-            assert _allclose(got, want, ATTN_TOL[dtype]), (H, hd, W, window)
+            _decode_check(dev, dtype, q, kc, vc, _prefix_slots(W, pos), pos,
+                          window, (H, K, hd, W, pos, window))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_wrapped_ring_on_card(dtype):
+    """A windowed ring that has wrapped (slot positions not monotone in
+    the slot index), with windows inside and equal to the ring, at the
+    engine's batch of 8 (clusters of 8 blocks) and at 64 (clusters of 1)."""
+    dev = _card()
+    rng = np.random.RandomState(11)
+    for B, (H, K, hd) in ((8, (16, 8, 128)), (64, (32, 32, 80))):
+        W, steps = 77, 300
+        q, kc, vc = _attn_inputs(rng, dev, dtype, (B, H, hd),
+                                 (B, W, K, hd), (B, W, K, hd))
+        for window in (5, 48, W):
+            _decode_check(dev, dtype, q, kc, vc, _ring_slots(W, steps),
+                          steps - 1, window, (B, H, window))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_empty_shares_on_card(dtype):
+    """Blocks of a cluster whose slots are all empty while others' are
+    not (three written slots at the front, or a run at the back of 1024),
+    and a cache with every slot empty, which gives exact zeros."""
+    dev = _card()
+    rng = np.random.RandomState(12)
+    B, H, K, hd, W = 8, 16, 8, 128, 1024
+    q, kc, vc = _attn_inputs(rng, dev, dtype, (B, H, hd), (B, W, K, hd),
+                             (B, W, K, hd))
+    back = np.full(W, -1, np.int32)
+    back[1000:1010] = np.arange(10)
+    for sp, pos in ((_prefix_slots(3, 2), 2), (torch.from_numpy(back), 9)):
+        sp = torch.cat([sp, torch.full((W - len(sp),), -1,
+                                       dtype=torch.int32)])
+        _decode_check(dev, dtype, q, kc, vc, sp, pos, 0, (pos,))
+    empty = torch.full((W,), -1, dtype=torch.int32)
+    got = _decode_check(dev, dtype, q, kc, vc, empty, 10, 0, "empty")
+    assert not bool((got != 0).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_repeats_bit_for_bit_on_card(dtype):
+    """No atomics and a fixed merge order: two launches give the same
+    bits, split over clusters of 8 blocks (B 8, K 8) and of 1 (B 64, K
+    32)."""
+    dev = _card()
+    rng = np.random.RandomState(13)
+    for B, H, K, hd in ((8, 16, 8, 128), (64, 32, 32, 80)):
+        q, kc, vc = _attn_inputs(rng, dev, dtype, (B, H, hd),
+                                 (B, 1024, K, hd), (B, 1024, K, hd))
+        sp = _prefix_slots(1024, 511).to(dev)
+        runs = [ops.decode_attention(q, kc, vc, sp, 511) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(*runs), (B, K)
+
+
+@pytest.mark.gpu
+def test_decode_attention_refuses_what_it_cannot_take_on_card():
+    """The kernel reads 16 bytes at a time and serves at most 8 q heads a
+    kv head: a bf16 head dim of 36 and 16 q heads on one kv head raise."""
+    dev = _card()
+    rng = np.random.RandomState(14)
+    sp = torch.arange(16, dtype=torch.int32, device=dev)
+    q, kc, vc = _attn_inputs(rng, dev, torch.bfloat16, (1, 2, 36),
+                             (1, 16, 2, 36), (1, 16, 2, 36))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.decode_attention(q, kc, vc, sp, 15)
+    q, kc, vc = _attn_inputs(rng, dev, torch.float32, (1, 16, 32),
+                             (1, 16, 1, 32), (1, 16, 1, 32))
+    with pytest.raises(ValueError, match="exceed the kernel's 8"):
+        ops.decode_attention(q, kc, vc, sp, 15)
 
 
 @pytest.mark.gpu

@@ -21,7 +21,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import math
 import os
 import subprocess
 import sys
@@ -57,42 +56,6 @@ FAULTS = {
 }
 
 
-def build(out_dir: str) -> dict:
-    """{name: path of its .so}: the unchanged source and one copy per
-    fault, built in parallel."""
-    from repro_torch.kernels import _build
-    with open(os.path.join(_build.CSRC, "flash_attention.cu")) as fh:
-        text = fh.read()
-    os.makedirs(out_dir, exist_ok=True)
-    sources = {"unchanged": text}
-    for name, (old, new) in FAULTS.items():
-        if text.count(old) != 1:
-            raise SystemExit(f"fault {name!r}: its text is not in the "
-                             f"source exactly once")
-        sources[name] = text.replace(old, new)
-    procs = {}
-    for i, (name, src) in enumerate(sources.items()):
-        cu = os.path.join(out_dir, f"flash_{i}.cu")
-        with open(cu, "w") as fh:
-            fh.write(src)
-        so = cu[:-3] + ".so"
-        procs[name] = (subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", so, cu],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
-    paths = {}
-    for name, (proc, so) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"nvcc failed for {name!r}:\n{out}")
-        paths[name] = so
-    return paths
-
-
-def _worse(r: float, worst: float) -> bool:
-    """Whether reading ``r`` replaces ``worst``; a NaN is the worst."""
-    return not math.isnan(worst) and (math.isnan(r) or r > worst)
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--bound", action="append", default=None,
@@ -100,10 +63,12 @@ def main() -> int:
                     help="bound to read (repeatable); default "
                          "chip_smoke.TOL_FLASH_BF16_F32")
     args = ap.parse_args()
-    sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
+    sys.path[:0] = [ROOT, os.path.join(ROOT, "src"),
+                    os.path.join(ROOT, "tools")]
     import torch
 
     import chip_smoke as cs
+    from _faults import build_variants, worse
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
     if not torch.cuda.is_available():
@@ -111,8 +76,9 @@ def main() -> int:
     bounds = ([tuple(float(x) for x in b.split(",")) for b in args.bound]
               if args.bound else [cs.TOL_FLASH_BF16_F32])
     from repro_torch.kernels import _build
-    libs = {name: fa.bind(ctypes.CDLL(so)) for name, so in
-            build(os.path.join(_build.BUILD_DIR, "faults")).items()}
+    libs = {name: fa.bind(ctypes.CDLL(so)) for name, so in build_variants(
+        "flash_attention", FAULTS,
+        os.path.join(_build.BUILD_DIR, "faults")).items()}
     # ratio[name][bound] = [all rows, rows >= S/2, worst case]
     ratio = {name: {b: [0.0, 0.0, None] for b in bounds} for name in libs}
     gen = torch.Generator().manual_seed(0)
@@ -136,9 +102,9 @@ def main() -> int:
                           f"rtol={b[1]:g}: {r:.4g} (rows >= S/2 {late:.4g})",
                           flush=True)
                     acc = ratio[name][b]
-                    if _worse(r, acc[0]):
+                    if worse(r, acc[0]):
                         acc[0], acc[2] = r, case
-                    if _worse(late, acc[1]):
+                    if worse(late, acc[1]):
                         acc[1] = late
             del want
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
