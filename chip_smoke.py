@@ -47,8 +47,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (every fold step one probe launch) within 0.03 of the plain probe.
 5. time   — kernel, plain-version and library times (CUDA events over
    CUDA-graph replays) and the work bound at the serving bucket (256) and
-   the training batch (128), the lane-MLP forward also at bucket 16 and
-   with training's saved pre-activations; each stage's steps/s as phase 4's run timed
+   the training batch (128), the lane-MLP forward and the int8 matmul also
+   at bucket 16 (the serving stream's smallest), the forward also with
+   training's saved pre-activations; each stage's steps/s as phase 4's run timed
    it, and one more ``run_apcvfl`` epoch on the card with each stage's
    launches per step and a profiler split; then the served stream's
    rows/s, fp32, int8, int8, fp32 by warmed engines.
@@ -935,8 +936,6 @@ def _bound_ms(flops: float, nbytes: float,
 
 def phase_time() -> dict:
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import ops, ref
     log(f"=== phase 5: kernel timing (bucket {BUCKET}, batch "
         f"{TRAIN_B}) ===")
     gen = torch.Generator().manual_seed(3)
@@ -945,21 +944,8 @@ def phase_time() -> dict:
             "lane_mlp_fwd_bucket16": _lane_mlp_fwd_set(gen, ENCODERS, 16),
             "lane_mlp_fwd_train": _lane_mlp_fwd_set(gen, AE_SHAPES, TRAIN_B,
                                                     save=True),
-            "int8_matmul": []}
-    for name, (d, c, act) in INT8_LAYERS.items():
-        x, w_q, scale, b = _int8_inputs(gen, B, d, c)
-        flops = 2.0 * B * d * c
-        nbytes = 4.0 * B * d + d * c + 8.0 * c + 4.0 * B * c
-        sel = (lambda t: F.selu(t)) if act == "selu" else (lambda t: t)
-        plain_sel = ref.selu if act == "selu" else (lambda t: t)
-        sets["int8_matmul"].append(dict(
-            shape=f"{name} {d}->{c} B={B}", flops=flops, bytes=nbytes,
-            kernel=lambda a=(x, w_q, scale, b), act=act: ops.int8_matmul(
-                *a, act=act),
-            plain=lambda a=(x, w_q, scale, b), s=plain_sel: s(
-                ref.int8_matmul_ref(*a)),
-            library=lambda a=(x, w_q, scale, b), s=sel: s(torch.addmm(
-                a[3], a[0], a[1].float() * a[2]))))
+            "int8_matmul": _int8_set(gen, B),
+            "int8_matmul_bucket16": _int8_set(gen, 16)}
     sets.update(_training_kernel_sets(gen))
     sets.update(_attention_kernel_sets(gen))
     sets.update(_ssd_kernel_sets(gen))
@@ -986,6 +972,28 @@ def phase_time() -> dict:
             "library_ms": None if None in lib else sum(lib),
             "bound_ms": bound, "bound_by": by, "per_shape": per_shape}
     return res
+
+
+def _int8_set(gen, B: int) -> list:
+    """Timing items of the int8 matmul at ``B`` rows over the quantized
+    active path's three layers; the library call dequantizes the weight
+    and runs ``addmm`` (and ``F.selu`` on the first layer)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    items = []
+    for name, (d, c, act) in INT8_LAYERS.items():
+        a = _int8_inputs(gen, B, d, c)
+        sel = F.selu if act == "selu" else (lambda t: t)
+        plain_sel = ref.selu if act == "selu" else (lambda t: t)
+        items.append(dict(
+            shape=f"{name} {d}->{c} B={B}", flops=2.0 * B * d * c,
+            bytes=4.0 * B * d + d * c + 8.0 * c + 4.0 * B * c,
+            kernel=lambda a=a, act=act: ops.int8_matmul(*a, act=act),
+            plain=lambda a=a, s=plain_sel: s(ref.int8_matmul_ref(*a)),
+            library=lambda a=a, s=sel: s(torch.addmm(
+                a[3], a[0], a[1].float() * a[2]))))
+    return items
 
 
 def _lane_mlp_fwd_set(gen, shapes: dict, B: int, save: bool = False) -> list:

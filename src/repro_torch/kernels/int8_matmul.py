@@ -2,9 +2,9 @@
 
 Counterpart of ``repro.kernels.int8_matmul`` (``_int8_kernel``):
 ``x @ (float(w_q) * scale) + b``, optionally followed by SELU, with the
-int8 weight dequantized in registers and never written back.  The public
-wrapper, which dispatches CPU tensors to the plain version, is
-``kernels.ops.int8_matmul``.
+int8 weight dequantized on its way into shared memory and never written
+to device memory.  The public wrapper, which dispatches CPU tensors to the
+plain version, is ``kernels.ops.int8_matmul``.
 """
 from __future__ import annotations
 
@@ -24,7 +24,6 @@ def _lib() -> ctypes.CDLL:
     lib = _build.library("int8_matmul")
     lib.int8_matmul.argtypes = [_P] * 5 + [_I] * 4 + [_P]
     lib.int8_matmul.restype = _I
-    lib.int8_matmul_max_d.restype = _I
     lib.int8_matmul_error_string.argtypes = [_I]
     lib.int8_matmul_error_string.restype = ctypes.c_char_p
     return lib
@@ -49,12 +48,9 @@ def launch(x, w_q, scale, b, *, act: str = "none"):
     _launch.check("w_q", w_q, (d, c), torch.int8, dev)
     _launch.check("scale", scale, (c,), f32, dev)
     _launch.check("b", b, (c,), f32, dev)
-    lib = _lib()
-    if d > lib.int8_matmul_max_d():
-        raise ValueError(f"input width {d} exceeds the kernel's "
-                         f"{lib.int8_matmul_max_d()}")
     if B == 0:
         raise ValueError("int8_matmul.launch: empty batch")
+    lib = _lib()
     out = torch.empty((B, c), dtype=f32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.int8_matmul(

@@ -8,7 +8,8 @@ chip (each tile of rows goes to a cluster of blocks that split the hidden
 and output columns and exchange the hidden activation through distributed
 shared memory); ``save=True`` also returns the pre-activations ``a1`` and
 ``a2`` the backward needs.  ``launch_bwd`` runs ``_bwd_kernel``, the
-closed-form backward, and sums its per-tile weight partials.  The public
+closed-form backward, as two launches (g1, dW1 and db1; then dW0, db0 and
+dx), each gradient summed over the rows inside the kernel.  The public
 wrappers (``kernels.ops``: ``fused_mlp2``, ``fused_lane_mlp2`` and the
 autograd Function behind them) dispatch CPU tensors to the plain versions.
 """
@@ -49,10 +50,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 @functools.cache
 def _lib_bwd() -> ctypes.CDLL:
     lib = _build.library("lane_mlp_bwd")
-    lib.lane_mlp_bwd.argtypes = [_P] * 14 + [_I] * 6 + [_P]
+    lib.lane_mlp_bwd.argtypes = [_P] * 12 + [_I] * 6 + [_P]
     lib.lane_mlp_bwd.restype = _I
-    lib.lane_mlp_bwd_tile_rows.restype = _I
-    lib.lane_mlp_bwd_max_width.restype = _I
     lib.lane_mlp_bwd_error_string.argtypes = [_I]
     lib.lane_mlp_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -106,9 +105,8 @@ def launch_bwd(g, xs, a1, a2, w0s, w1s, *, final_act: bool = False,
                need_dx: bool = True):
     """The backward for output cotangent ``g`` (L, B, dz), from the inputs
     and saved pre-activations of ``launch(..., save=True)``: two kernel
-    launches on the current stream, then the deterministic sum of the
-    weight partials over their tile axis.  Returns ``(dx, dw0, db0, dw1,
-    db1)`` with the lane axis; ``dx`` is None unless ``need_dx``."""
+    launches on the current stream.  Returns ``(dx, dw0, db0, dw1, db1)``
+    with the lane axis; ``dx`` is None unless ``need_dx``."""
     if xs.dim() != 3:
         raise ValueError(f"xs must be (L, B, din), got {tuple(xs.shape)}")
     L, B, din = xs.shape
@@ -122,28 +120,21 @@ def launch_bwd(g, xs, a1, a2, w0s, w1s, *, final_act: bool = False,
                            ("w0s", w0s, (L, din, h)),
                            ("w1s", w1s, (L, h, dz))):
         _launch.check(name, t, shape, f32, dev)
-    lib = _lib_bwd()
-    if h + dz > lib.lane_mlp_bwd_max_width():
-        raise ValueError(f"widths h={h} + dz={dz} exceed the backward "
-                         f"kernel's {lib.lane_mlp_bwd_max_width()}")
     if B == 0:
         raise ValueError("lane_mlp.launch_bwd: empty batch")
-    T = -(-B // lib.lane_mlp_bwd_tile_rows())
+    lib = _lib_bwd()
     new = lambda *shape: torch.empty(shape, dtype=f32, device=dev)
     dx = new(L, B, din) if need_dx else None
-    dw0p, db0p = new(L, T, din, h), new(L, T, h)
-    dw1p, db1p = new(L, T, h, dz), new(L, T, dz)
-    g1, h1 = new(L, B, h), new(L, B, h)
-    g2 = new(L, B, dz) if final_act else None
-    ptr = lambda t: None if t is None else t.data_ptr()
+    dw0, db0, dw1, db1 = new(L, din, h), new(L, h), new(L, h, dz), new(L, dz)
+    g1 = new(L, B, h)
     with torch.cuda.device(dev):
         rc = lib.lane_mlp_bwd(
             g.data_ptr(), xs.data_ptr(), a1.data_ptr(), a2.data_ptr(),
-            w0s.data_ptr(), w1s.data_ptr(), ptr(dx), dw0p.data_ptr(),
-            db0p.data_ptr(), dw1p.data_ptr(), db1p.data_ptr(), g1.data_ptr(),
-            h1.data_ptr(), ptr(g2), L, B, din, h, dz, int(bool(final_act)),
+            w0s.data_ptr(), w1s.data_ptr(),
+            None if dx is None else dx.data_ptr(), dw0.data_ptr(),
+            db0.data_ptr(), dw1.data_ptr(), db1.data_ptr(), g1.data_ptr(),
+            L, B, din, h, dz, int(bool(final_act)),
             torch.cuda.current_stream().cuda_stream)
     _launch.raise_on_error(rc, "lane_mlp_bwd launch",
                            lib.lane_mlp_bwd_error_string)
-    return (dx, dw0p.sum(dim=1), db0p.sum(dim=1), dw1p.sum(dim=1),
-            db1p.sum(dim=1))
+    return dx, dw0, db0, dw1, db1

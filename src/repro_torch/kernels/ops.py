@@ -5,8 +5,8 @@ tensor launches the hand-written kernel or raises — there is no fallback.
 ``LAUNCHES`` counts kernel launches per kernel, incremented right where a
 kernel is launched and nowhere else, so a run can show that its path went
 through the kernels (``reset_launches`` zeroes it).  ``lane_mlp_bwd``
-counts one per backward, which is a pair of launches (the rows pass, then
-the weight partials).
+counts one per backward, which is a pair of launches (g1 and dW1, then dW0
+and dx).
 
 The attention wrappers take the model's layouts and grouped-query heads
 as they are (k/v with K kv heads, K dividing H): the kernels map q head

@@ -173,6 +173,197 @@ def test_lane_mlp_grads_through_function_with_dead_lane_on_card():
         assert not bool(a[1].any())
 
 
+def _bwd_case(seed, L, B, din, h, dz, dev, final_act=False):
+    """Inputs of ``launch_bwd``: the forward's, its saved pre-activations
+    (from the forward kernel) and an output cotangent, with L lanes."""
+    xs, w0s, b0s, w1s, b1s = _mlp(seed, B, din, h, dz, dev, lanes=(L,))
+    _, a1, a2 = lane_mlp.launch(xs, w0s, b0s, w1s, b1s,
+                                final_act=final_act, save=True)
+    g = _randn(np.random.RandomState(seed + 1), L, B, dz).to(dev)
+    return g, xs, a1, a2, w0s, w1s
+
+
+@pytest.mark.gpu
+def test_lane_mlp_bwd_repeats_bit_for_bit_on_card():
+    """No atomics and fixed sum orders: two backwards give the same bits,
+    at the training batch and over many 128-row chunks."""
+    dev = _card()
+    for B, fa in ((128, False), (2000, True)):
+        args = _bwd_case(B, 1, B, 256, 256, 384, dev, fa)
+        runs = [lane_mlp.launch_bwd(*args, final_act=fa) for _ in range(2)]
+        torch.cuda.synchronize()
+        for a, b in zip(*runs):
+            assert torch.equal(a, b), B
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["g1_active.enc", "g2.enc", "g3.dec"])
+def test_lane_mlp_bwd_without_dx_on_card(name):
+    """need_dx=False leaves the dx tiles out and changes nothing else: one
+    row, a ragged tile and many tiles with a ragged tail."""
+    dev = _card()
+    for B in (1, 77, 2000):
+        args = _bwd_case(B, 1, B, *AE_SHAPES[name], dev)
+        full = lane_mlp.launch_bwd(*args)
+        got = lane_mlp.launch_bwd(*args, need_dx=False)
+        want = ref.mlp2_bwd_ref(*args)
+        torch.cuda.synchronize()
+        assert got[0] is None
+        for a, b, w in zip(got[1:], full[1:], want[1:]):
+            assert torch.equal(a, b), (name, B)
+            assert _relerr(a, w) <= 1e-5, (name, B)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("widths", [(10, 128, 256), (256, 128, 10)])
+def test_lane_mlp_bwd_two_lanes_one_dead_on_card(widths):
+    """An L = 2 stack at the g1 stage's widths padded to the larger party
+    (``padding.pad_stack`` over g1_active and g1_passive): the live lane
+    matches its plain version, the dead lane (g = 0) gives exact zeros."""
+    dev = _card()
+    for B in (77, 128):
+        g, *rest = _bwd_case(B, 2, B, *widths, dev)
+        g[1] = 0.0
+        for fa in (False, True):
+            got = lane_mlp.launch_bwd(g, *rest, final_act=fa)
+            want = ref.mlp2_bwd_ref(g, *rest, fa)
+            for a, w in zip(got, want):
+                assert _relerr(a, w) <= 1e-5, (widths, B, fa)
+                assert not bool(a[1].any()), (widths, B, fa)
+
+
+@pytest.mark.gpu
+def test_kernels_take_widths_past_the_old_limits_on_card():
+    """K streams through shared memory in slabs, so no width is refused:
+    the backward at h + dz past the 7264 its rows pass once admitted, the
+    int8 matmul at d past its old 7264."""
+    dev = _card()
+    args = _bwd_case(7, 1, 16, 8, 2000, 5300, dev)
+    for a, w in zip(lane_mlp.launch_bwd(*args), ref.mlp2_bwd_ref(*args)):
+        assert _relerr(a, w) <= 1e-5
+    rng = np.random.RandomState(8)
+    w_q, scale = quant.quantize_weight(_randn(rng, 7300, 16,
+                                              scale=7300 ** -0.5))
+    x, b = _randn(rng, 16, 7300).to(dev), _randn(rng, 16, scale=0.1).to(dev)
+    w_q, scale = torch.from_numpy(w_q).to(dev), torch.from_numpy(scale).to(dev)
+    got = ops.int8_matmul(x, w_q, scale, b)
+    assert _relerr(got, ref.int8_matmul_ref(x, w_q, scale, b)) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [2, 4])
+def test_int8_matmul_heads_repeat_bit_for_bit_on_card(c):
+    """The head at the serving buckets and a ragged batch: within 1e-5 of
+    the plain version and the same bits on a second launch."""
+    dev = _card()
+    rng = np.random.RandomState(c)
+    w_q, scale = quant.quantize_weight(_randn(rng, 256, c, scale=1 / 16))
+    w_q, scale = torch.from_numpy(w_q).to(dev), torch.from_numpy(scale).to(dev)
+    b = _randn(rng, c, scale=0.1).to(dev)
+    for B in (1, 16, 77, 256):
+        x = _randn(rng, B, 256).to(dev)
+        runs = [ops.int8_matmul(x, w_q, scale, b) for _ in range(2)]
+        assert _maxerr(runs[0], ref.int8_matmul_ref(x, w_q, scale, b)) \
+            <= 1e-5, (c, B)
+        assert torch.equal(*runs), (c, B)
+
+
+# the kernels as they stood before their redesign, built from git into the
+# ignored build directory: the redesign kept every sum order, so the bits
+# must not move
+BEFORE_REDESIGN = "ba1cb40fc083caff77ebf5316ec6d49afb092394"
+
+
+def _library_before(name):
+    import ctypes
+    import os
+    import subprocess
+    from repro_torch.kernels import _build
+    out = os.path.join(_build.BUILD_DIR, "before")
+    os.makedirs(out, exist_ok=True)
+    cu = os.path.join(out, f"{name}.cu")
+    if not os.path.exists(cu):
+        src = subprocess.run(
+            ["git", "-C", os.path.dirname(_build.CSRC), "show",
+             f"{BEFORE_REDESIGN}:src/repro_torch/kernels/csrc/{name}.cu"],
+            capture_output=True, text=True)
+        if src.returncode:
+            pytest.skip(f"needs git history (or {cu}) for the kernel "
+                        f"before its redesign")
+        with open(cu, "w") as fh:
+            fh.write(src.stdout)
+    so = cu[:-3] + ".so"
+    if not os.path.exists(so):
+        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", so,
+                        cu], check=True, capture_output=True)
+    return ctypes.CDLL(so)
+
+
+def _bwd_before(lib, g, xs, a1, a2, w0s, w1s, final_act):
+    """The backward through the old C interface, as its launcher ran it:
+    rows pass, weight partials, then ``sum`` over the tile axis."""
+    import ctypes
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.lane_mlp_bwd.argtypes = [P] * 14 + [I] * 6 + [P]
+    lib.lane_mlp_bwd_tile_rows.restype = I
+    L, B, din = xs.shape
+    h, dz = w0s.shape[-1], w1s.shape[-1]
+    T = -(-B // lib.lane_mlp_bwd_tile_rows())
+    new = lambda *shape: torch.empty(shape, device=xs.device)
+    dx, g1, h1, g2 = new(L, B, din), new(L, B, h), new(L, B, h), new(L, B, dz)
+    parts = [new(L, T, din, h), new(L, T, h), new(L, T, h, dz), new(L, T, dz)]
+    rc = lib.lane_mlp_bwd(
+        *(t.data_ptr() for t in (g, xs, a1, a2, w0s, w1s, dx, *parts, g1,
+                                 h1, g2)),
+        L, B, din, h, dz, int(final_act),
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    return (dx, *(p.sum(dim=1) for p in parts))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(AE_SHAPES))
+def test_lane_mlp_bwd_equals_kernel_before_redesign_on_card(name):
+    dev = _card()
+    lib = _library_before("lane_mlp_bwd")
+    for B, fa in ((1, True), (77, False), (128, False), (128, True),
+                  (2000, False)):
+        args = _bwd_case(B, 1, B, *AE_SHAPES[name], dev, fa)
+        got = lane_mlp.launch_bwd(*args, final_act=fa)
+        want = _bwd_before(lib, *args, fa)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (name, B, fa)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layer", list(INT8_LAYERS))
+def test_int8_matmul_equals_kernel_before_redesign_on_card(layer):
+    """The old kernel has the same C interface: both run through the
+    launcher, one with the library before the redesign."""
+    from repro_torch.kernels import int8_matmul as i8
+    dev = _card()
+    d, c, act = INT8_LAYERS[layer]
+    before = _library_before("int8_matmul")
+    for B in (1, 16, 77, 256):
+        rng = np.random.RandomState(B)
+        w_q, scale = quant.quantize_weight(_randn(rng, d, c,
+                                                  scale=d ** -0.5))
+        args = (_randn(rng, B, d).to(dev), torch.from_numpy(w_q).to(dev),
+                torch.from_numpy(scale).to(dev),
+                _randn(rng, c, scale=0.1).to(dev))
+        got = i8.launch(*args, act=act)
+        loader = i8._lib
+        try:
+            before.int8_matmul.argtypes = loader().int8_matmul.argtypes
+            i8._lib = lambda: before
+            want = i8.launch(*args, act=act)
+        finally:
+            i8._lib = loader
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (layer, B)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["mse", "mae"])
 def test_distill_rows_match_plain_on_card(kind):

@@ -39,6 +39,8 @@ def build_variants(source: str, faults: dict, out_dir: str) -> dict:
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed for {name!r}:\n{out}")
+        with open(so[:-3] + ".log", "w") as fh:     # the -Xptxas -v report
+            fh.write(out)
         paths[name] = so
     return paths
 
