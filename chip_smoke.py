@@ -878,16 +878,24 @@ def phase_train() -> dict:
                                 torch.as_tensor(sc.active.x, device="cuda"))
     torch.cuda.synchronize()
     ops.reset_launches()
+    t0 = time.perf_counter()
     m_kernel = clf.kfold_cv(z_all, sc.active.y, sc.n_classes,
                             use_kernel=True, device="cuda")
+    torch.cuda.synchronize()
+    kfold_s = {"kernel": time.perf_counter() - t0}
     probe_counts = dict(ops.LAUNCHES)
     _require(probe_counts["probe"] > 0, "probe kernel never ran")
+    t0 = time.perf_counter()
     m_plain = clf.kfold_cv(z_all, sc.active.y, sc.n_classes, device="cuda")
+    torch.cuda.synchronize()
+    kfold_s["plain"] = time.perf_counter() - t0
     probe_gap = {k: abs(m_kernel[k] - m_plain[k]) for k in m_plain}
     _require(max(probe_gap.values()) < TOL_METRIC, probe_gap)
     _require(all(0.0 <= v <= 1.0 for v in m_kernel.values()), m_kernel)
     log(f"kfold_cv with the probe kernel: {m_kernel} (launches "
         f"{probe_counts['probe']}), gap to plain {probe_gap}")
+    log(f"kfold_cv wall (host clock, synchronised): probe kernel "
+        f"{kfold_s['kernel']:.4f} s, plain probe {kfold_s['plain']:.4f} s")
     return {"launches": {k: train_counts[k] + probe_counts[k]
                          for k in train_counts},
             "train_launches": train_counts, "probe_launches": probe_counts,
@@ -896,6 +904,7 @@ def phase_train() -> dict:
             "cpu_metrics": cpu.metrics, "loss_rel_err": loss_err,
             "metric_gap": metric_gap, "kfold_kernel": m_kernel,
             "kfold_plain": m_plain, "probe_metric_gap": probe_gap,
+            "kfold_wall_s": kfold_s,
             "stream": {k: stats[k] for k in ("rows_per_s", "latency_ms_p50",
                                               "latency_ms_p99")}}
 
@@ -1157,12 +1166,14 @@ def _attention_kernel_sets(gen) -> dict:
 
 
 def ssd_work(B, S, H, G, N, P, Lc) -> tuple:
-    """(operations, bytes) of the SSD intra-chunk block: per (b, chunk,
-    head) the lower triangle's scores (N) and y (P) products, 2 operations
-    a multiply-add, and the states' Lc * N * P; bytes count x, dt, A, B, C
-    in and y, states out once."""
+    """(operations, bytes) of the SSD intra-chunk block, 2 operations a
+    multiply-add: per (b, chunk, group) the lower triangle's scores C·Bᵀ
+    (N each; B and C are the group's, so its heads share them), per (b,
+    chunk, head) the lower triangle's y products (P each) and the states'
+    Lc * N * P; bytes count x, dt, A, B, C in and y, states out once."""
     tri = Lc * (Lc + 1) / 2
-    flops = B * (S // Lc) * H * (2.0 * tri * (N + P) + 2.0 * Lc * N * P)
+    flops = B * (S // Lc) * (G * 2.0 * tri * N
+                             + H * (2.0 * tri * P + 2.0 * Lc * N * P))
     nbytes = 4.0 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * G * N
                     + B * (S // Lc) * H * N * P)
     return flops, nbytes

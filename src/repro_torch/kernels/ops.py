@@ -209,7 +209,9 @@ def probe_grad_step(w, b, x, y, rw, *, l2: float = 1e-4):
 
     w (d, C), b (C,), x (n, d), y (n,) int labels, rw (n,) row weights
     (0 disables a row exactly); or the lane form, w (k, d, C), b (k, C),
-    rw (k, n) for k fold probes sharing x and y, in one kernel launch.
+    rw (k, n) for k fold probes sharing x and y, in one call of the
+    kernel's entry point (a launch pair per group of lanes: the kernel and
+    the sum of its per-block partials; ``LAUNCHES["probe"]`` counts calls).
     The weights are normalized by ``max(sum(rw), 1)`` before the kernel
     and the L2 term is added after it, as the reference does."""
     lanes = w.dim() == 3

@@ -2,8 +2,13 @@
 
 Counterpart of ``repro.kernels.probe`` (``_probe_kernel``): for K fold
 lanes of probes sharing ``x`` and ``y``, the weighted CE loss, ``dW`` and
-``db`` from pre-normalized row weights, without the L2 term.  The kernel
-writes per-tile partials; ``launch`` sums them over the tile axis.  The
+``db`` from pre-normalized row weights, without the L2 term.  One call of
+the C entry point makes two launches for each group of lanes (more than
+one group only where K * C passes 64 or shared memory runs short): the
+kernel, which reads x once for the group's lanes and leaves one partial
+(dW, db, loss) per block of rows, nb * (d * K * C + K * C + K) floats of
+scratch for nb <= 128 blocks, and a second launch that sums the partials
+in a fixed order, so ``launch`` returns its outputs as they are.  The
 public wrapper, which normalizes the weights, adds L2 and dispatches CPU
 tensors to the plain version, is ``kernels.ops.probe_grad_step``.
 """
@@ -17,24 +22,24 @@ import torch
 from repro_torch.kernels import _build, _launch
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-MAX_SMEM = 232448          # bytes of shared memory a Hopper block may hold
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.library("probe")
-    lib.probe.argtypes = [_P] * 8 + [_I] * 4 + [_P]
+    lib.probe.argtypes = [_P] * 9 + [_I] * 4 + [_P]
     lib.probe.restype = _I
-    lib.probe_tile_rows.restype = _I
-    lib.probe_smem_bytes.argtypes = [_I, _I]
-    lib.probe_smem_bytes.restype = ctypes.c_longlong
+    lib.probe_group_lanes.argtypes = [_I, _I]
+    lib.probe_group_lanes.restype = _I
+    lib.probe_scratch_floats.argtypes = [_I] * 4
+    lib.probe_scratch_floats.restype = ctypes.c_longlong
     lib.probe_error_string.argtypes = [_I]
     lib.probe_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def launch(w, b, x, y, rwn):
-    """One launch: w (K, d, C), b (K, C), x (n, d), y (n,) int32, rwn
+    """One call: w (K, d, C), b (K, C), x (n, d), y (n,) int32, rwn
     (K, n), contiguous CUDA tensors.  Returns ``(loss (K,), dw (K, d, C),
     db (K, C))``."""
     if w.dim() != 3 or x.dim() != 2:
@@ -52,19 +57,20 @@ def launch(w, b, x, y, rwn):
                                ("rwn", rwn, (K, n), f32)):
         _launch.check(name, t, shape, dt, dev)
     lib = _lib()
-    if lib.probe_smem_bytes(d, C) > MAX_SMEM:
+    if lib.probe_group_lanes(d, C) == 0:
         raise ValueError(f"probe: d={d}, C={C} need more shared memory "
                          f"than a block holds")
     if n == 0:
         raise ValueError("probe.launch: no rows")
-    T = -(-n // lib.probe_tile_rows())
-    lossp = torch.empty((K, T), dtype=f32, device=dev)
-    dwp = torch.empty((K, T, d, C), dtype=f32, device=dev)
-    dbp = torch.empty((K, T, C), dtype=f32, device=dev)
+    loss = torch.empty((K,), dtype=f32, device=dev)
+    dw = torch.empty((K, d, C), dtype=f32, device=dev)
+    db = torch.empty((K, C), dtype=f32, device=dev)
+    part = torch.empty((lib.probe_scratch_floats(n, d, C, K),), dtype=f32,
+                       device=dev)
     with torch.cuda.device(dev):
         rc = lib.probe(x.data_ptr(), y.data_ptr(), rwn.data_ptr(),
-                       w.data_ptr(), b.data_ptr(), lossp.data_ptr(),
-                       dwp.data_ptr(), dbp.data_ptr(), K, n, d, C,
-                       torch.cuda.current_stream().cuda_stream)
+                       w.data_ptr(), b.data_ptr(), loss.data_ptr(),
+                       dw.data_ptr(), db.data_ptr(), part.data_ptr(), K, n,
+                       d, C, torch.cuda.current_stream().cuda_stream)
     _launch.raise_on_error(rc, "probe launch", lib.probe_error_string)
-    return lossp.sum(dim=1), dwp.sum(dim=1), dbp.sum(dim=1)
+    return loss, dw, db

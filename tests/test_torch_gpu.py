@@ -168,9 +168,27 @@ def test_lane_mlp_grads_through_function_with_dead_lane_on_card():
     cpu = [t.detach().cpu().requires_grad_(True) for t in arrs]
     out_c = ops.fused_lane_mlp2(*cpu, live.cpu())
     want = torch.autograd.grad(torch.sum(out_c * g.cpu()), cpu)
-    for a, b in zip(got, want):
-        assert _relerr(a.cpu(), b) <= 1e-5
+    for i, (a, b) in enumerate(zip(got, want)):
+        e = _relerr(a.cpu(), b)
+        assert e <= 1e-5, (i, e)
         assert not bool(a[1].any())
+
+
+@pytest.mark.gpu
+def test_lane_mlp_grads_through_function_repeat_bit_for_bit_on_card():
+    """The dead-lane case above through autograd three times on the card:
+    the forward and backward kernels give the same bits every run."""
+    dev = _card()
+    arrs = [t.requires_grad_(True)
+            for t in _mlp(3, 77, 256, 256, 384, dev, lanes=(3,))]
+    live = torch.tensor([1.0, 0.0, 1.0], device=dev)
+    g = _randn(np.random.RandomState(4), 3, 77, 384).to(dev)
+    runs = [torch.autograd.grad(
+        torch.sum(ops.fused_lane_mlp2(*arrs, live) * g), arrs)
+        for _ in range(3)]
+    for run in runs[1:]:
+        for a, b in zip(run, runs[0]):
+            assert torch.equal(a, b)
 
 
 def _bwd_case(seed, L, B, din, h, dz, dev, final_act=False):
@@ -269,9 +287,12 @@ def test_int8_matmul_heads_repeat_bit_for_bit_on_card(c):
 
 
 # the kernels as they stood before their redesign, built from git into the
-# ignored build directory: the redesign kept every sum order, so the bits
-# must not move
-BEFORE_REDESIGN = "ba1cb40fc083caff77ebf5316ec6d49afb092394"
+# ignored build directory: the redesigns of the backward, int8 and the SSD
+# kept every sum order, so their bits must not move
+BEFORE_REDESIGN = {"lane_mlp_bwd": "ba1cb40fc083caff77ebf5316ec6d49afb092394",
+                   "int8_matmul": "ba1cb40fc083caff77ebf5316ec6d49afb092394",
+                   "ssd_chunk": "64a7bb6392a75af0ec712db0c0376ad1fab10090",
+                   "probe": "64a7bb6392a75af0ec712db0c0376ad1fab10090"}
 
 
 def _library_before(name):
@@ -285,7 +306,8 @@ def _library_before(name):
     if not os.path.exists(cu):
         src = subprocess.run(
             ["git", "-C", os.path.dirname(_build.CSRC), "show",
-             f"{BEFORE_REDESIGN}:src/repro_torch/kernels/csrc/{name}.cu"],
+             f"{BEFORE_REDESIGN[name]}:src/repro_torch/kernels/csrc/"
+             f"{name}.cu"],
             capture_output=True, text=True)
         if src.returncode:
             pytest.skip(f"needs git history (or {cu}) for the kernel "
@@ -404,6 +426,128 @@ def test_probe_matches_plain_on_card():
             w.cpu(), b.cpu(), x.cpu(), y.cpu(), rw.cpu())]
         for a, bb in zip(got, want):
             assert _maxerr(a, bb) <= 1e-4
+
+
+def _probe_case(rng, n, d, C, k, dev):
+    x = _randn(rng, n, d).to(dev)
+    y = torch.from_numpy(rng.randint(0, C, n).astype(np.int32)).to(dev)
+    w, b = _randn(rng, k, d, C, scale=0.1).to(dev), \
+        _randn(rng, k, C, scale=0.1).to(dev)
+    rw = torch.from_numpy((rng.rand(k, n) > 0.1).astype(np.float32)).to(dev)
+    return w, b, x, y, rw / rw.sum(-1, keepdim=True).clamp(min=1.0)
+
+
+def _probe_before(lib, w, b, x, y, rwn):
+    """The probe step through the old C interface, as its launcher ran it:
+    per-tile partials, then ``sum`` over the tile axis."""
+    import ctypes
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.probe.argtypes = [P] * 8 + [I] * 4 + [P]
+    lib.probe_tile_rows.restype = I
+    K, d, C = w.shape
+    n = x.shape[0]
+    T = -(-n // lib.probe_tile_rows())
+    new = lambda *shape: torch.empty(shape, device=x.device)
+    parts = [new(K, T), new(K, T, d, C), new(K, T, C)]
+    rc = lib.probe(*(t.data_ptr() for t in (x, y, rwn, w, b, *parts)), K, n,
+                   d, C, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    return tuple(p.sum(dim=1) for p in parts)
+
+
+def _order_bound(abs_sum, m):
+    """The most two summation orders of the same m fp32 terms can differ:
+    2 gamma_{m-1} times the sum of the terms' magnitudes, gamma_k = k u /
+    (1 - k u), u = 2^-24 (Higham, Accuracy and Stability of Numerical
+    Algorithms, 2nd ed., section 4.2)."""
+    ku = (m - 1) * 2.0 ** -24
+    return 2.0 * ku / (1.0 - ku) * abs_sum
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, k", [(77, 1), (77, 10), (15000, 1),
+                                  (15000, 10), (40000, 10)])
+def test_probe_within_sum_order_bound_of_kernel_before_redesign_on_card(
+        n, k):
+    """The new kernel sums each block's rows and then the blocks' partials;
+    the old one summed 64-row tiles and then ``torch.sum`` over them.  The
+    per-row terms are the same (each logit keeps its j order, g its
+    expressions), so dW, db and the loss may differ only as two orders of
+    the same n terms can (``_order_bound``, magnitudes from fp64)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import probe
+    dev = _card()
+    w, b, x, y, rwn = _probe_case(np.random.RandomState(n + k), n, 256, 4, k,
+                                  dev)
+    got = probe.launch(w, b, x, y, rwn)
+    want = _probe_before(_library_before("probe"), w, b, x, y, rwn)
+    torch.cuda.synchronize()
+    logits = x.double() @ w.double() + b.double()[:, None]
+    onehot = F.one_hot(y.long(), 4).double()
+    g = (torch.softmax(logits, -1) - onehot) * rwn.double()[..., None]
+    rows = (torch.logsumexp(logits, -1) - (logits * onehot).sum(-1)) \
+        * rwn.double()
+    bounds = (_order_bound(rows.abs().sum(1), n),
+              _order_bound(x.double().abs().T @ g.abs(), n),
+              _order_bound(g.abs().sum(1), n))
+    for a, bb, bound in zip(got, want, bounds):
+        assert bool(((a.double() - bb.double()).abs() <= bound).all()), (n, k)
+        assert _maxerr(a, bb) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_probe_repeats_bit_for_bit_on_card():
+    from repro_torch.kernels import probe
+    dev = _card()
+    args = _probe_case(np.random.RandomState(16), 15000, 256, 4, 10, dev)
+    runs = [probe.launch(*args) for _ in range(3)]
+    for run in runs[1:]:
+        for a, b in zip(run, runs[0]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_probe_zero_weight_rows_are_exact_zeros_on_card():
+    """A lane of weight 0 gives exact zeros; rows of weight 0 in every lane
+    are inert: moving their x and labels changes no bit."""
+    from repro_torch.kernels import probe
+    dev = _card()
+    rng = np.random.RandomState(17)
+    w, b, x, y, rwn = _probe_case(rng, 15000, 256, 4, 3, dev)
+    rwn[1] = 0.0
+    dead = torch.from_numpy(rng.rand(15000) < 0.2).to(dev)
+    rwn[:, dead] = 0.0
+    got = probe.launch(w, b, x, y, rwn)
+    assert not got[1][1].any() and not got[2][1].any() and \
+        float(got[0][1]) == 0.0
+    x2, y2 = x.clone(), y.clone()
+    x2[dead] = _randn(rng, int(dead.sum()), 256, scale=3.0).to(dev)
+    y2[dead] = (y2[dead] + 1) % 4
+    for a, bb in zip(got, probe.launch(w, b, x2, y2, rwn)):
+        assert torch.equal(a, bb)
+
+
+@pytest.mark.gpu
+def test_probe_wide_rows_and_many_lanes_match_plain_on_card():
+    """d past 256 (more than one 256-wide j group), d off a multiple of 4
+    (4-byte copies), K * C past 64 (lanes in groups), C past 64 (one lane
+    in several column passes), d and C at the PR-12 kernel's limits
+    (shared memory for 64 rows: d 849 at C 4, C 130 at d 256; here 32-row
+    tiles) and blocks of several row tiles (n 40000, the sums carried
+    through the partial): within 1e-4 of the plain version; a d whose
+    32-row tile does not fit is refused."""
+    from repro_torch.kernels import probe
+    dev = _card()
+    rng = np.random.RandomState(18)
+    for n, d, C, k in ((300, 300, 4, 2), (1000, 510, 2, 3), (500, 30, 3, 1),
+                       (2000, 64, 5, 20), (7, 256, 4, 10), (600, 600, 4, 3),
+                       (300, 849, 4, 1), (400, 256, 130, 2), (50, 4, 800, 1),
+                       (40000, 256, 4, 10)):
+        args = _probe_case(rng, n, d, C, k, dev)
+        for a, bb in zip(probe.launch(*args), ref.probe_grad_ref(*args)):
+            assert _maxerr(a, bb) <= 1e-4, (n, d, C, k)
+    with pytest.raises(ValueError, match="shared memory"):
+        probe.launch(*_probe_case(rng, 10, 1500, 4, 1, dev))
 
 
 @pytest.mark.gpu
@@ -740,11 +884,16 @@ def test_card_routes_attention_through_kernels_with_switch_off():
 TOL_SSD = 2e-4          # tests/test_kernels.py::test_ssd_intra_chunk_kernel
 # (B, S, H, G, N, P, Lc, steep): zamba2's width over two chunks and at
 # prefill_step's B 2, S 2048; a ragged grouped chunk (S 100, so Lc 100);
-# per-step log-decays down to -16
+# per-step log-decays down to -16; N or P off a multiple of 4 and x a view
+# 4 bytes into its buffer (both take the kernel's 4-byte copies)
 SSD_CASES = {"zamba2": (2, 512, 80, 1, 64, 64, 256, False),
              "zamba2 prefill": (2, 2048, 80, 1, 64, 64, 256, False),
              "ragged grouped": (1, 100, 6, 2, 16, 32, 100, False),
-             "steep decay": (2, 512, 8, 1, 64, 64, 256, True)}
+             "steep decay": (2, 512, 8, 1, 64, 64, 256, True),
+             "N 30 P 36": (1, 256, 6, 2, 30, 36, 128, False),
+             "N 36 P 30 Lc 100": (1, 200, 4, 1, 36, 30, 100, False),
+             "x offset view": (2, 512, 8, 1, 64, 64, 256, False)}
+SSD_X_OFFSET = {"x offset view"}
 
 
 def _ssd_inputs(rng, B, S, H, G, N, P, steep):
@@ -760,13 +909,26 @@ def _ssd_inputs(rng, B, S, H, G, N, P, steep):
     return x, dt, A, Bm, Cm
 
 
+def _ssd_case(case, seed, dev):
+    """``(args on dev, Lc)`` of an SSD case; x of an ``SSD_X_OFFSET`` case
+    is a contiguous view one float into a larger buffer, so its base is
+    not 16-byte aligned."""
+    B, S, H, G, N, P, Lc, steep = SSD_BEFORE_CASES[case]
+    args = [t.to(dev) for t in _ssd_inputs(np.random.RandomState(seed), B,
+                                            S, H, G, N, P, steep)]
+    if case in SSD_X_OFFSET:
+        buf = torch.empty(args[0].numel() + 1, device=dev)
+        buf[1:] = args[0].reshape(-1)
+        args[0] = buf[1:].view(args[0].shape)
+    return args, Lc
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", list(SSD_CASES))
 def test_ssd_intra_chunk_matches_plain_on_card(case):
     dev = _card()
     B, S, H, G, N, P, Lc, steep = SSD_CASES[case]
-    args = [t.to(dev) for t in _ssd_inputs(np.random.RandomState(11), B, S,
-                                            H, G, N, P, steep)]
+    args, Lc = _ssd_case(case, 11, dev)
     ops.reset_launches()
     y, st = ops.ssd_intra_chunk(*args, Lc)
     assert ops.LAUNCHES["ssd_intra_chunk"] == 1
@@ -784,6 +946,51 @@ def test_ssd_bf16_raises_on_card():
                                             4, 1, 16, 16, False)]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ops.ssd_intra_chunk(*args, 32, bf16=True)
+
+
+# the SSD against its kernel before the redesign: SSD_CASES, chunks of 64,
+# 100 and 200, two groups at N and P of 16, 32 and 64, steep decays
+SSD_BEFORE_CASES = dict(SSD_CASES, **{
+    "Lc 64": (2, 256, 8, 1, 64, 64, 64, False),
+    "Lc 100": (1, 300, 6, 1, 64, 64, 100, False),
+    "Lc 200": (2, 400, 4, 1, 64, 64, 200, False),
+    "G 2 N 16 P 16": (1, 256, 8, 2, 16, 16, 256, False),
+    "G 2 N 32 P 32": (2, 512, 8, 2, 32, 32, 256, False),
+    "G 2 N 64 P 64": (1, 512, 8, 2, 64, 64, 256, False),
+    "G 2 N 16 P 64": (1, 256, 4, 2, 16, 64, 128, False),
+    "G 2 N 64 P 32 Lc 100 steep": (1, 200, 4, 2, 64, 32, 100, True)})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(SSD_BEFORE_CASES))
+def test_ssd_intra_chunk_equals_kernel_before_redesign_on_card(case):
+    """The redesign kept every sum order: y and the states have the bits of
+    the kernel at 64a7bb6, launched through the same C interface."""
+    from repro_torch.kernels import ssd_chunk
+    dev = _card()
+    args, Lc = _ssd_case(case, 13, dev)
+    before = _library_before("ssd_chunk")
+    got = ssd_chunk.launch(*args, Lc)
+    loader = ssd_chunk._lib
+    try:
+        before.ssd_intra_chunk.argtypes = loader().ssd_intra_chunk.argtypes
+        ssd_chunk._lib = lambda: before
+        want = ssd_chunk.launch(*args, Lc)
+    finally:
+        ssd_chunk._lib = loader
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_ssd_intra_chunk_repeats_bit_for_bit_on_card():
+    dev = _card()
+    B, S, H, G, N, P, Lc, steep = SSD_CASES["zamba2 prefill"]
+    args = [t.to(dev) for t in _ssd_inputs(np.random.RandomState(15), B, S,
+                                            H, G, N, P, steep)]
+    runs = [ops.ssd_intra_chunk(*args, Lc) for _ in range(3)]
+    for y, st in runs[1:]:
+        assert torch.equal(y, runs[0][0]) and torch.equal(st, runs[0][1])
 
 
 @pytest.mark.gpu

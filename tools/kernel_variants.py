@@ -4,9 +4,9 @@ stands, copies of it with one part taken out, and, for the two cluster
 kernels, the unchanged kernel at each thread-block cluster size, timed at
 the main path's shapes.
 
-    python3 tools/kernel_variants.py [--before] [decode lane bwd int8 ...]
+    python3 tools/kernel_variants.py [decode lane bwd int8 ssd probe ...]
 
-Builds ``csrc/<source>.cu`` of each named group (default: all four) with
+Builds ``csrc/<source>.cu`` of each named group (default: all six) with
 its variants (one ``nvcc`` each, all started together) into
 ``src/repro_torch/kernels/build/variants/`` (ignored by git) and times each
 with ``chip_smoke.graph_ms`` (CUDA events over CUDA-graph replays; inputs
@@ -18,18 +18,19 @@ written (internlm2-1.8b's H 16, K 8, hd 128 and zamba2's H = K = 32, hd
 80, bf16); the lane-MLP forward at g2, g3 and g1_active's Table-3 widths at
 buckets 16 and 256; the lane-MLP backward (``bwd``) at the eight Table-3
 autoencoder MLPs at the training batch of 128; the int8 matmul at the
-quantized active path's three layers at buckets 256 and 16.
+quantized active path's three layers at buckets 256 and 16; the SSD
+intra-chunk block at zamba2's ``prefill_step`` (B 2, S 2048, H 80, N = P =
+64, Lc 256, fp32); the probe step at phase 5's 10 fold lanes over mimic3's
+active rows (d 256, C 4).
 
-``--before`` takes the backward and int8 variants of those two kernels as
-they stood before their redesign (commit ba1cb40): run it from an unpacked
-copy of that tree (``git archive``) with this tool and ``chip_smoke.py``
-copied in.
+The edits match the kernels' sources as they stand.  To split a kernel as
+it stood before a redesign, unpack that commit (``git archive``) and run
+its own copy of this tool there, with its tables edited to match.
 Prints one line per time and a JSON summary last.  Needs one card and
 nvcc.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import json
 import os
@@ -73,26 +74,6 @@ LANE = {
         "const float4 wv = *reinterpret_cast<const float4*>(w + kk * PC);",
         "const float4 wv = make_float4(kk, 1.f, 2.f, 3.f);"),
 }
-# The lane-MLP backward and the int8 matmul as they stood before their
-# redesign (run with --before in that tree)
-BWD_BEFORE = {
-    # launch (a), g1 and dx by 8-row tiles, left out
-    "no rows pass": ("  lane_mlp_bwd_rows<<<",
-                     "  if (false) lane_mlp_bwd_rows<<<"),
-    # launch (a) without its dx loop
-    "rows pass without dx": ("  if (dx) {\n", "  if (false) {\n"),
-    # launch (b), the per-tile weight partials, left out
-    "no weights pass": ("  lane_mlp_bwd_weights<<<",
-                        "  if (false) lane_mlp_bwd_weights<<<"),
-}
-INT8_BEFORE = {
-    # the k loop reads no weight byte
-    "no weight loads": (
-        "const float w = (float)__ldg(w_q + (size_t)k * c + col) * s;",
-        "const float w = (float)k * s;"),
-    "no FMA loop": ("for (int k = 0; k < d; ++k) {",
-                    "for (int k = 0; k < 0; ++k) {"),
-}
 BWD = {
     # the first launch (dW1/db1 and g1 tiles) left out
     "no launch 1": ("  lane_mlp_bwd_kernel<<<dim3((unsigned)n1, L)",
@@ -131,8 +112,41 @@ INT8 = {
     "no FMA loop": ("    for (int kk = 0; kk < kn; ++kk) {",
                     "    for (int kk = 0; kk < 0; ++kk) {"),
 }
+SSD = {
+    # no tile is copied: the block computes on what shared memory holds
+    "no staging": ("for (int r = threadIdx.x >> 4; r < R; r += THREADS / 16) "
+                   "{\n    const bool ok = r < rows;",
+                   "for (int r = threadIdx.x >> 4; r < 0; r += THREADS / 16) "
+                   "{\n    const bool ok = r < rows;"),
+    # the decays' expf left out (their cs loads and subtraction stay)
+    "no exp": ("sc[i][j] * expf(csl[i] - css)", "sc[i][j] * (csl[i] - css)"),
+    # the states blocks return at once
+    "no states": ("  const bool states = role == nt;       // else the y "
+                  "block of l tile lt\n",
+                  "  const bool states = role == nt;       // else the y "
+                  "block of l tile lt\n  if (states) return;\n"),
+    "no score products": ("for (int n4 = 0; n4 < nq; ++n4) {",
+                          "for (int n4 = 0; n4 < 0; ++n4) {"),
+    # neither y's nor the states' products (their tiles still staged)
+    "no y or state products": (
+        "fma_tile(acc, St_h, Xk, s_hi, r0, q);",
+        "fma_tile(acc, St_h, Xk, 0, r0, q);"),
+}
+PROBE = {
+    "no x staging": ("for (int r = t >> 4; r < TR; r += THREADS / 16) {",
+                     "for (int r = t >> 4; r < 0; r += THREADS / 16) {"),
+    "no logits pass": ("for (int jq = 16 * sl; jq < q1; ++jq) {",
+                       "for (int jq = 16 * sl; jq < 16 * sl; ++jq) {"),
+    "no softmax": ("for (int e = t; e < TR * K; e += THREADS) {",
+                   "for (int e = t; e < 0; e += THREADS) {"),
+    "no dW pass": ("        for (int r = 0; r < rows; ++r) {\n          "
+                   "const float4 u", "        for (int r = 0; r < 0; ++r) "
+                   "{\n          const float4 u"),
+    # the second launch, the blocks' partials summed, left out
+    "no tile sum": ("    probe_sum<<<", "    if (false) probe_sum<<<"),
+}
 CLUSTERS = (1, 2, 4, 8)
-GROUPS = ("decode", "lane", "bwd", "int8")
+GROUPS = ("decode", "lane", "bwd", "int8", "ssd", "probe")
 
 
 def _bound(loader, so: str):
@@ -148,28 +162,11 @@ def _bound(loader, so: str):
         _build.library = real
 
 
-@contextlib.contextmanager
-def _tile_sums_skipped():
-    """``torch.Tensor.sum`` as the identity while a call is captured: the
-    backward as it stood before its redesign then returns its per-tile weight
-    partials without its four ``torch.sum`` launches."""
-    import torch
-    real = torch.Tensor.sum
-    torch.Tensor.sum = lambda self, *a, **kw: self
-    try:
-        yield
-    finally:
-        torch.Tensor.sum = real
-
-
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("groups", nargs="*",
                     help=f"any of {', '.join(GROUPS)} (default: all)")
-    ap.add_argument("--before", action="store_true",
-                    help="the bwd and int8 variants of those kernels as "
-                         "they stood before their redesign")
     args = ap.parse_args(argv)
     groups = args.groups or list(GROUPS)
     if set(groups) - set(GROUPS):
@@ -184,6 +181,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import int8_matmul as i8
     from repro_torch.kernels import lane_mlp as lm
+    from repro_torch.kernels import probe as pr
+    from repro_torch.kernels import ssd_chunk as sc
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: needs a CUDA card")
     out_dir = os.path.join(_build.BUILD_DIR, "variants")
@@ -193,11 +192,17 @@ def main(argv=None) -> int:
             "lane": (lm, "_lib", "lane_mlp_fwd", LANE,
                      lambda so: lm.bind(ctypes.CDLL(so))),
             "bwd": (lm, "_lib_bwd", "lane_mlp_bwd",
-                    BWD_BEFORE if args.before else BWD,
+                    BWD,
                     lambda so: _bound(lm._lib_bwd, so)),
             "int8": (i8, "_lib", "int8_matmul",
-                     INT8_BEFORE if args.before else INT8,
-                     lambda so: _bound(i8._lib, so))}
+                     INT8,
+                     lambda so: _bound(i8._lib, so)),
+            "ssd": (sc, "_lib", "ssd_chunk",
+                    SSD,
+                    lambda so: _bound(sc._lib, so)),
+            "probe": (pr, "_lib", "probe",
+                      PROBE,
+                      lambda so: _bound(pr._lib, so))}
     libs, ptxas = {}, {}
     for grp in groups:
         module, attr, source, edits, bind = spec[grp]
@@ -243,6 +248,21 @@ def main(argv=None) -> int:
                 cases.append(("int8", f"{name} {d}->{c} B={Bm}",
                               lambda a=a, act=act: ops.int8_matmul(
                                   *a, act=act)))
+    if "ssd" in groups:
+        cfg = cs._zamba_cfg()
+        B, S = cs.ZAMBA["prefill"]
+        H, G, N, P, Lc = (cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_state,
+                          cfg.ssm_head_dim, cfg.ssm_chunk)
+        a = cs._ssd_inputs(gen, B, S, H, G, N, P)
+        cases.append(("ssd", f"B={B} S={S} H={H} G={G} N={N} P={P} Lc={Lc} "
+                      f"fp32", lambda a=a: ops.ssd_intra_chunk(*a, Lc)))
+    if "probe" in groups:
+        n, d, C, k = (len(cs._scenario().active.x), 256, cs.N_CLASSES,
+                      cs.PROBE_FOLDS)
+        w, b, x, y, rw = cs._probe_inputs(gen, n, d, C, k)
+        rwn = rw / rw.sum(-1, keepdim=True).clamp(min=1.0)
+        cases.append(("probe", f"{k} fold lanes n={n} d={d} C={C}",
+                      lambda a=(w, b, x, y, rwn): pr.launch(*a)))
     summary = {}
     cluster_size = _launch.cluster_size
     for kernel, shape, fn in cases:
@@ -256,11 +276,6 @@ def main(argv=None) -> int:
                 print(f"{kernel} {shape} | {name}: {row[name]:.3f} us",
                       flush=True)
             setattr(module, attr, lambda lib=variants["unchanged"]: lib)
-            if kernel == "bwd" and args.before:
-                with _tile_sums_skipped():
-                    row["no tile sums"] = cs.graph_ms(fn) * 1e3
-                print(f"{kernel} {shape} | no tile sums: "
-                      f"{row['no tile sums']:.3f} us", flush=True)
             for c in (CLUSTERS if kernel in ("decode", "lane") else ()):
                 _launch.cluster_size = lambda *_, c=c: c
                 row[f"cluster {c}"] = cs.graph_ms(fn) * 1e3
@@ -271,8 +286,7 @@ def main(argv=None) -> int:
             setattr(module, attr, loader)
     smi = cs._smi()
     print(smi)
-    print(json.dumps({"device": smi, "before": args.before,
-                      "us": summary, "ptxas": ptxas}))
+    print(json.dumps({"device": smi, "us": summary, "ptxas": ptxas}))
     return 0
 
 
