@@ -13,12 +13,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    three quantized layers within 1e-5 (the reference's pinned bounds);
    the lane-MLP backward at the eight Table-3 autoencoder MLPs x
    B in {1, 77, 128, 2000} plus a three-lane stack with a dead lane within
-   1e-5 relative; the Eq. 5 rows forward and backward (mse and mae, mask
-   rows at 0 and 1) within 1e-5; the probe step (rows at weight 0) within
-   1e-4.  Then each training wrapper as the path calls it, on the card
-   against itself on CPU copies at the same bounds: ``fused_mlp2`` and
-   ``fused_lane_mlp2`` under autograd with and without an input gradient,
-   ``fused_distill_rows`` and ``probe_grad_step`` in both forms.  Then the
+   1e-5 relative; Eq. 5 (mse and mae, mask rows at 0 and 1) within 1e-5
+   of max(|want|) where that lies below 1, else absolute (``_scalederr``):
+   the forward's rows and mean forms, the backward for row cotangents, for
+   the mean's cotangent, and with only the g3 step's gradients; the probe
+   step (rows at weight 0) within 1e-4.  Then each training wrapper as the
+   path calls it, on the card against itself on CPU copies at the same
+   bounds: ``fused_mlp2`` and ``fused_lane_mlp2`` under autograd with and
+   without an input gradient, ``fused_distill_rows``, ``fused_distill_loss``
+   (all five gradients, and the g3 step's two) and ``probe_grad_step`` in
+   both forms.  Then the
    flash-attention wrapper at eight (B, S, H, K, hd) shapes (zamba2's MHA
    at hd 80, ragged S at hd 32 and 64 and S 4096 among them), causal with
    window 0, 128 and 100 (inside a kv tile) and full, and the
@@ -49,15 +53,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
    CUDA-graph replays) and the work bound at the serving bucket (256) and
    the training batch (128), the lane-MLP forward and the int8 matmul also
    at bucket 16 (the serving stream's smallest), the forward also with
-   training's saved pre-activations; each stage's steps/s as phase 4's run timed
-   it, and one more ``run_apcvfl`` epoch on the card with each stage's
-   launches per step and a profiler split; then the served stream's
-   rows/s, fp32, int8, int8, fp32 by warmed engines.
+   training's saved pre-activations, Eq. 5 in the g3 step's forms and the
+   rows form and as a whole step's loss, and an empty kernel (the launch
+   floor); each stage's steps/s as phase 4's run timed it, and one more
+   ``run_apcvfl`` epoch on the card with each stage's launches and device
+   kernels per step and a profiler split, and Eq. 5's device kernels and
+   time in a g3 step (the two Eq. 5 kernels, once each); then the served
+   stream's rows/s, fp32, int8, int8, fp32 by warmed engines.
 6. limit  — the readings that place TOL_LOSS_G3_LAST: the CPU's own spread
    between two orderings of the same math (closed-form backward vs
    autograd) must lie below it, and ``run_apcvfl`` on the card with a
-   planted fault in the Eq. 5 backward (the distillation gradient scaled)
-   must land above it.
+   planted fault in the Eq. 5 backward kernel's dz (the distillation
+   gradient scaled) must land above it.
 7. lm     — the dense decoder's serving path: internlm2-1.8b at full width
    and depth in bf16 through ``repro_torch.launch.serve.main --no-smoke``
    (batch 8, 1024 slots, prefill 128, 32 requests of 16-128 prompt tokens,
@@ -111,7 +118,7 @@ PEAK_BYTES_PER_S = 3.35e12     # H100 SXM, HBM3
 TOL_MLP = 1e-4                 # lane-MLP forward vs plain, max-abs
 TOL_GRAD = 1e-5                # lane-MLP backward vs plain, relative
 TOL_INT8 = 1e-5                # int8 matmul vs plain, max-abs
-TOL_DISTILL = 1e-5             # Eq. 5 rows and gradients, max-abs
+TOL_DISTILL = 1e-5             # Eq. 5 rows and gradients, _scalederr
 TOL_PROBE = 1e-4               # probe loss / dW / db, max-abs
 TOL_ENGINE = 1e-4              # card engine vs CPU engine (sum order)
 TOL_LOSS = 1e-4                # card vs CPU train loss per epoch, relative
@@ -140,6 +147,9 @@ BATCHES = (16, 77, 256, 4096)
 BWD_BATCHES = (1, 77, 128, 2000)
 TRAIN_B = 128                  # the paper's batch size
 DISTILL = dict(D=5, M=256, lam=0.01)          # step 3 at mimic3 widths
+VAL_ROWS = 2000                # the validation pass: a tenth of 20,000 rows
+# which of Eq. 5's (x, x_hat, z, z_t, mask) a g3 step differentiates
+G3_NEEDS = (False, True, True, False, False)
 PROBE_FOLDS = 10
 N_CLASSES = 4                  # mimic3
 # the three layers of the int8 active path: (d, c, act)
@@ -245,6 +255,17 @@ def _maxerr(a, b) -> float:
 
 def _relerr(a, b) -> float:
     return float((a - b).abs().max() / max(float(b.abs().max()), 1.0))
+
+
+def _scalederr(a, b) -> float:
+    """max|a - b| over max|b| where that lies below 1, else over 1: the
+    absolute error of values of order one and the relative error of small
+    ones (the mean form's gradients carry a factor 1/B), which an
+    absolute bound would not see."""
+    import torch
+    tiny = torch.finfo(torch.float32).tiny
+    scale = min(max(float(b.abs().max()), tiny), 1.0)
+    return float((a - b).abs().max()) / scale
 
 
 def _bwd_inputs(gen, B, din, h, dz, lanes=1):
@@ -361,6 +382,7 @@ def check_wrappers(gen) -> dict:
     the backward's null-dx branch) and requiring one (the decoder case),
     ``fused_lane_mlp2`` with a dead lane, ``fused_distill_rows``'s
     ``(dx, -dx, dz, -dz, dmask)`` over rows and over a lane axis, and
+    ``fused_distill_loss``'s with all five and with the g3 step's two, and
     ``probe_grad_step``'s weight normalisation and L2 term in the single
     and the fold-lane form that ``kfold_cv`` uses."""
     import torch
@@ -396,12 +418,17 @@ def check_wrappers(gen) -> dict:
                 gen, int(np.prod(lead)), DISTILL["D"], DISTILL["M"])
             args = [t.reshape(lead + t.shape[1:]) for t in (x, xh, z, zt,
                                                             mask)]
-            got, want = _card_vs_cpu(
-                lambda *a: ops.fused_distill_rows(*a, lam=0.3, kind=kind),
-                args, (True,) * 5, gen)
-            e = max(_maxerr(a, b) for a, b in zip(got, want))
-            _require(e <= TOL_DISTILL, ("fused_distill_rows", kind, lead, e))
-            err["distill"] = max(err["distill"], e)
+            for fn, grad_of in (
+                    (ops.fused_distill_rows, (True,) * 5),
+                    (ops.fused_distill_loss, (True,) * 5),
+                    (ops.fused_distill_loss, G3_NEEDS)):
+                got, want = _card_vs_cpu(
+                    lambda *a: fn(*a, lam=0.3, kind=kind), args, grad_of,
+                    gen)
+                e = max(_scalederr(a, b) for a, b in zip(got, want))
+                _require(len(got) == 1 + sum(grad_of) and e <= TOL_DISTILL,
+                         (fn.__name__, kind, lead, grad_of, e))
+                err["distill"] = max(err["distill"], e)
     for n, k in ((77, None), (77, 3), (15000, PROBE_FOLDS)):
         w, b, x, y, rw = _probe_inputs(gen, n, 256, N_CLASSES, k or 1)
         if k is None:
@@ -419,11 +446,50 @@ def check_wrappers(gen) -> dict:
     return err
 
 
+def distill_errors(gen) -> list:
+    """``(kind, B, forward error, backward error, their max-abs errors)``
+    of the Eq. 5 kernels against their plain versions (the first two
+    ``_scalederr``, which phase 2 bounds) at step 3's widths: both
+    forward forms, and the backward for row cotangents with every
+    gradient, for the mean's cotangent with every gradient and with the g3
+    step's (x_hat, z) only."""
+    import torch
+    from repro_torch.kernels import distill_loss, ref
+    out = []
+    for kind in ("mse", "mae"):
+        for B in (1, 77, TRAIN_B, 2000):
+            args = _distill_inputs(gen, B, DISTILL["D"], DISTILL["M"])
+            kw = dict(lam=0.3, kind=kind)
+            want = ref.distill_rows_ref(*args, **kw)
+            rows, mean = distill_loss.launch_fwd(*args, mean_of=B, **kw)
+            pairs = [(distill_loss.launch_fwd(*args, **kw), want),
+                     (rows, want), (mean, torch.mean(want).reshape(1))]
+            e = max(_scalederr(u, v) for u, v in pairs)
+            a = max(_maxerr(u, v) for u, v in pairs)
+            e2 = a2 = 0.0
+            for g, mean_of, needs in ((_rand(gen, (B,)), 0, (True,) * 5),
+                                      (_rand(gen, (1,)), B, (True,) * 5),
+                                      (torch.ones(1).cuda(), B, G3_NEEDS)):
+                got = distill_loss.launch_bwd(g, *args, mean_of=mean_of,
+                                              needs=needs, **kw)
+                want_g = ref.distill_bwd_ref(g, *args, mean_of=mean_of,
+                                             needs=needs, **kw)
+                _require(all((a is None) == (not n)
+                             for a, n in zip(got, needs)), needs)
+                pairs = [(u, v) for u, v in zip(got, want_g)
+                         if u is not None]
+                e2 = max([e2] + [_scalederr(u, v) for u, v in pairs])
+                a2 = max([a2] + [_maxerr(u, v) for u, v in pairs])
+            torch.cuda.synchronize()
+            out.append((kind, B, e, e2, a, a2))
+    return out
+
+
 def check_training_kernels(gen, err: dict) -> None:
     """The lane-MLP backward, the Eq. 5 rows and the probe step against
     their plain versions (part of phase 2)."""
     import torch
-    from repro_torch.kernels import distill_loss, lane_mlp, probe, ref
+    from repro_torch.kernels import lane_mlp, probe, ref
     err.update(lane_mlp_bwd=0.0, lane_mlp_bwd_rel=0.0, distill_fwd=0.0,
                distill_bwd=0.0, probe=0.0)
     cases = [(name, shp, B, 1, B == 77) for name, shp in AE_SHAPES.items()
@@ -447,21 +513,13 @@ def check_training_kernels(gen, err: dict) -> None:
         _require(e <= TOL_GRAD, (name, B, e))
         err["lane_mlp_bwd_rel"] = max(err["lane_mlp_bwd_rel"], e)
         err["lane_mlp_bwd"] = max(err["lane_mlp_bwd"], e_abs)
-    for kind in ("mse", "mae"):
-        for B in (1, 77, TRAIN_B, 2000):
-            args = _distill_inputs(gen, B, DISTILL["D"], DISTILL["M"])
-            kw = dict(lam=0.3, kind=kind)
-            e = _maxerr(distill_loss.launch_fwd(*args, **kw),
-                        ref.distill_rows_ref(*args, **kw))
-            g = _rand(gen, (B,))
-            e2 = max(_maxerr(a, b) for a, b in zip(
-                distill_loss.launch_bwd(g, *args, **kw),
-                ref.distill_rows_bwd_ref(g, *args, **kw)))
-            torch.cuda.synchronize()
-            log(f"distill {kind} B={B}: fwd max|err| {e:.3e}, bwd {e2:.3e}")
-            _require(e <= TOL_DISTILL and e2 <= TOL_DISTILL, (kind, B, e, e2))
-            err["distill_fwd"] = max(err["distill_fwd"], e)
-            err["distill_bwd"] = max(err["distill_bwd"], e2)
+    for kind, B, e, e2, a, a2 in distill_errors(gen):
+        log(f"distill {kind} B={B}: fwd (rows, mean) scaled err {e:.3e}, "
+            f"bwd (rows, mean, g3 gradients) {e2:.3e}; max|err| {a:.3e}, "
+            f"{a2:.3e}")
+        _require(e <= TOL_DISTILL and e2 <= TOL_DISTILL, (kind, B, e, e2))
+        err["distill_fwd"] = max(err["distill_fwd"], a)
+        err["distill_bwd"] = max(err["distill_bwd"], a2)
     for n, C, k in ((15000, 4, PROBE_FOLDS), (77, 2, 3)):
         w, b, x, y, rw = _probe_inputs(gen, n, 256, C, k)
         rwn = rw / torch.clamp(rw.sum(-1, keepdim=True), min=1.0)
@@ -956,6 +1014,7 @@ def phase_time() -> dict:
             "int8_matmul": _int8_set(gen, B),
             "int8_matmul_bucket16": _int8_set(gen, 16)}
     sets.update(_training_kernel_sets(gen))
+    sets.update(_launch_floor_set())
     sets.update(_attention_kernel_sets(gen))
     sets.update(_ssd_kernel_sets(gen))
     res = {}
@@ -1063,9 +1122,9 @@ def _library_probe(w, b, x, y, rwn):
 def _training_kernel_sets(gen) -> dict:
     """Timing sets of the training kernels at the shapes the training
     path gives them: the lane-MLP backward of each Table-3 MLP at the
-    batch of 128, step 3's Eq. 5 rows, and one probe step of the 10 fold
-    lanes over mimic3's active rows."""
-    from repro_torch.kernels import distill_loss, lane_mlp, probe, ref
+    batch of 128, step 3's Eq. 5 (``_distill_sets``), and one probe step
+    of the 10 fold lanes over mimic3's active rows."""
+    from repro_torch.kernels import lane_mlp, probe, ref
     B = TRAIN_B
     sets = {"lane_mlp_bwd": []}
     for name, (din, h, dz) in AE_SHAPES.items():
@@ -1078,22 +1137,7 @@ def _training_kernel_sets(gen) -> dict:
             bytes=nbytes, kernel=lambda a=a: lane_mlp.launch_bwd(*a),
             plain=lambda a=a: ref.mlp2_bwd_ref(*a),
             library=lambda a=tuple(t[0] for t in a): _library_mlp_bwd(*a)))
-    D, M = DISTILL["D"], DISTILL["M"]
-    args = _distill_inputs(gen, B, D, M)
-    g = _rand(gen, (B,))
-    kw = dict(lam=DISTILL["lam"], kind="mse")
-    shape = f"step 3 B={B} D={D} M={M} mse"
-    sets["distill_fwd"] = [dict(
-        shape=shape, flops=3.0 * B * (D + M + 1),
-        bytes=4.0 * (2 * B * D + 2 * B * M + 2 * B),
-        kernel=lambda: distill_loss.launch_fwd(*args, **kw),
-        plain=lambda: ref.distill_rows_ref(*args, **kw), library=None)]
-    sets["distill_bwd"] = [dict(
-        shape=shape, flops=B * (3.0 * D + 4.0 * M + 5),
-        bytes=4.0 * (3 * B + 3 * B * D + 3 * B * M),
-        kernel=lambda: distill_loss.launch_bwd(g, *args, **kw),
-        plain=lambda: ref.distill_rows_bwd_ref(g, *args, **kw),
-        library=None)]
+    sets.update(_distill_sets(gen, B))
     n, d, C, k = len(_scenario().active.x), 256, N_CLASSES, PROBE_FOLDS
     w, b, x, y, rw = _probe_inputs(gen, n, d, C, k)
     rwn = rw / rw.sum(-1, keepdim=True).clamp(min=1.0)
@@ -1106,6 +1150,106 @@ def _training_kernel_sets(gen) -> dict:
         plain=lambda: ref.probe_grad_ref(*pa),
         library=lambda: _library_probe(*pa))]
     return sets
+
+
+def _eq5_step(args, lam: float):
+    """Eq. 5 forward and backward as a g3 step runs it: the loss through
+    ``ops.fused_distill_loss``, then the gradients of x_hat and z for a
+    loss cotangent of 1."""
+    import torch
+    from repro_torch.kernels import ops
+    x, xh, z, zt, mask = args
+    xh, z = xh.detach().requires_grad_(True), z.detach().requires_grad_(True)
+    one = torch.ones((), device=x.device)
+    return lambda: torch.autograd.grad(
+        ops.fused_distill_loss(x, xh, z, zt, mask, lam=lam), [xh, z], one)
+
+
+def _distill_sets(gen, B: int) -> dict:
+    """Timing items of Eq. 5 at step 3's batch: the forward and backward
+    as a g3 step launches them (the mean form; the mean's cotangent with
+    only x_hat's and z's gradients) and in the rows form with the TPU
+    kernel's outputs (dx, dz, dmask), then the whole loss of a step
+    (``_eq5_step``); and the mean form at the validation pass's
+    ``VAL_ROWS``, which sums on a cooperative grid where the batch sums on
+    one cluster."""
+    import torch
+    from repro_torch.kernels import distill_loss, ref
+    D, M, lam = DISTILL["D"], DISTILL["M"], DISTILL["lam"]
+    args = _distill_inputs(gen, B, D, M)
+    g = _rand(gen, (B,))
+    kw = dict(lam=lam, kind="mse")
+    shape = f"step 3 B={B} D={D} M={M} mse"
+    fwd = dict(flops=3.0 * B * (D + M + 1),
+               bytes=4.0 * (2 * B * D + 2 * B * M + 2 * B))
+    bwd = dict(flops=B * (3.0 * D + 4.0 * M + 5),
+               bytes=4.0 * (3 * B + 3 * B * D + 3 * B * M))
+    rows = {
+        "fwd": [dict(shape=shape + " rows", **fwd,
+                     kernel=lambda: distill_loss.launch_fwd(*args, **kw),
+                     plain=lambda: ref.distill_rows_ref(*args, **kw),
+                     library=None)],
+        "bwd": [dict(shape=shape + " rows, dx dz dmask", **bwd,
+                     kernel=lambda: distill_loss.launch_bwd(g, *args, **kw),
+                     plain=lambda: ref.distill_rows_bwd_ref(g, *args, **kw),
+                     library=None)]}
+    fwd_mean = dict(flops=fwd["flops"] + B, bytes=fwd["bytes"] + 4.0)
+    bwd_g3 = dict(flops=B * (2.0 * D + 4.0 * M + 3),
+                  bytes=4.0 * (1 + 2 * B * D + 2 * B * M + B + B * D + B * M))
+
+    def plain_step():
+        rows_p = ref.distill_rows_ref(*args, **kw)
+        gr = torch.full((B,), 1.0 / B, device=rows_p.device)
+        dx, dz, _ = ref.distill_rows_bwd_ref(gr, *args, **kw)
+        return torch.mean(rows_p), -dx, dz
+    step = [dict(shape=shape + " mean, d x_hat and dz",
+                 flops=fwd_mean["flops"] + bwd_g3["flops"],
+                 bytes=fwd_mean["bytes"] + bwd_g3["bytes"],
+                 kernel=_eq5_step(args, lam), plain=plain_step, library=None)]
+    one = torch.ones(1, device=g.device)
+    val = _distill_inputs(gen, VAL_ROWS, D, M)
+    return {
+        "distill_fwd": [dict(
+            shape=shape + " mean", **fwd_mean,
+            kernel=lambda: distill_loss.launch_fwd(*args, mean_of=B, **kw),
+            plain=lambda: torch.mean(ref.distill_rows_ref(*args, **kw)),
+            library=None)],
+        "distill_bwd": [dict(
+            shape=shape + " mean, d x_hat and dz", **bwd_g3,
+            kernel=lambda: distill_loss.launch_bwd(
+                one, *args, mean_of=B, needs=G3_NEEDS, **kw),
+            plain=lambda: ref.distill_bwd_ref(one, *args, mean_of=B,
+                                              needs=G3_NEEDS, **kw),
+            library=None)],
+        "distill_fwd_validation": [dict(
+            shape=f"validation N={VAL_ROWS} D={D} M={M} mse mean",
+            flops=3.0 * VAL_ROWS * (D + M + 1) + VAL_ROWS,
+            bytes=4.0 * (2 * VAL_ROWS * (D + M) + 2 * VAL_ROWS + 1),
+            kernel=lambda: distill_loss.launch_fwd(*val, mean_of=VAL_ROWS,
+                                                   **kw),
+            plain=lambda: torch.mean(ref.distill_rows_ref(*val, **kw)),
+            library=None)],
+        "distill_fwd_rows": rows["fwd"], "distill_bwd_rows": rows["bwd"],
+        "eq5_step": step}
+
+
+def _launch_floor_set() -> dict:
+    """An empty kernel (``csrc/launch_floor.cu``) timed as every row is:
+    what one launch costs in a CUDA-graph replay, the floor under every
+    kernel whose bound is smaller."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import _build
+    lib = _build.library("launch_floor")
+    lib.launch_floor.argtypes = [ctypes.c_void_p]
+    lib.launch_floor.restype = ctypes.c_int
+
+    def launch():
+        rc = lib.launch_floor(torch.cuda.current_stream().cuda_stream)
+        _require(rc == 0, f"launch_floor: CUDA error {rc}")
+    return {"launch_floor": [dict(shape="empty kernel, 1 block of 32",
+                                  flops=0.0, bytes=0.0, kernel=launch,
+                                  plain=launch, library=None)]}
 
 
 def _attention_kernel_sets(gen) -> dict:
@@ -1218,9 +1362,11 @@ def _observed(fn, calls: list):
         launches = dict(ops.LAUNCHES)
         split = {"port kernels": 0.0, "other device work": 0.0}
         other: dict = {}
+        kernels = 0
         for e in prof.events():
             if e.device_type != DeviceType.CUDA:
                 continue
+            kernels += 1
             us = e.time_range.elapsed_us()
             if any(k in e.name for k in ("lane_mlp", "distill", "probe")):
                 split["port kernels"] += us
@@ -1233,6 +1379,7 @@ def _observed(fn, calls: list):
         calls.append({
             "steps": steps, "launches": launches,
             "launches_per_step": sum(launches.values()) / steps,
+            "device_kernels_per_step": kernels / steps,
             "wall_ms_profiled": wall_us / 1e3,
             "device_ms": {k: v / 1e3 for k, v in split.items()},
             "device_busy_share": busy / wall_us,
@@ -1240,6 +1387,48 @@ def _observed(fn, calls: list):
                                  other.items()), reverse=True)[:6]})
         return out
     return wrapped
+
+
+def eq5_profile(steps: int = 20) -> dict:
+    """Eq. 5's part of a g3 step on the card (``_eq5_step`` at the batch of
+    128, the g3 widths): ``steps`` steps under the profiler, with every
+    CUDA kernel of its full list counted, their device time, and their
+    names."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    gen = torch.Generator().manual_seed(4)
+    step = _eq5_step(_distill_inputs(gen, TRAIN_B, DISTILL["D"],
+                                     DISTILL["M"]), DISTILL["lam"])
+    step()
+    torch.cuda.synchronize()
+    # one step in the profiler's warm-up cycle, whose events it drops, so
+    # that the counted cycle starts with the tracing running; the counted
+    # cycle's events are taken as it ends
+    traced: list = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: traced.extend(p.events())) as prof:
+        step()
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        prof.step()
+    names: dict = {}
+    us = 0.0
+    for e in traced:       # the schedule's step annotation is no kernel
+        if (e.device_type == DeviceType.CUDA
+                and not e.name.startswith("ProfilerStep")):
+            names[e.name[:80]] = names.get(e.name[:80], 0) + 1
+            us += e.time_range.elapsed_us()
+    res = {"steps": steps,
+           "device_kernels_per_step": sum(names.values()) / steps,
+           "device_us_per_step": us / steps,
+           "kernels": {k: v / steps for k, v in names.items()}}
+    log(f"Eq. 5 of a g3 step (B {TRAIN_B}): {res}")
+    return res
 
 
 def phase_train_time(card: dict) -> dict:
@@ -1275,6 +1464,12 @@ def phase_train_time(card: dict) -> dict:
     for stage, call in zip(STAGES, calls):
         res[stage]["profiled_epoch"] = call
         log(f"profile of one {stage} epoch: {call}")
+    res["g3"]["eq5"] = eq5 = eq5_profile()
+    # only the two Eq. 5 kernels, once a step (a trace may drop an event)
+    _require(len(eq5["kernels"]) == 2
+             and all("distill" in k and v <= 1 for k, v in
+                     eq5["kernels"].items())
+             and eq5["device_kernels_per_step"] > 1.9, eq5)
     return res
 
 
@@ -1323,8 +1518,9 @@ def phase_limit(train: dict) -> dict:
     launch_bwd = distill_loss.launch_bwd
     for what, scale in FAULTS.items():
         def planted(*args, scale=scale, **kw):
-            dx, dz, dm = launch_bwd(*args, **kw)
-            return dx, dz * scale, dm
+            dx, dxh, dz, dzt, dm = launch_bwd(*args, **kw)
+            return (dx, dxh, dz * scale, None if dzt is None else dzt * scale,
+                    dm)
         distill_loss.launch_bwd = planted
         try:
             faults[what] = _loss_rel_err(_run(sc, "cuda").train_loss, want)
@@ -1773,9 +1969,10 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--time-only", action="store_true",
-                    help="build, then only phase 5's kernel timing; its "
-                         "rows as one JSON line (to time two trees' "
-                         "kernels in one call, each with this script)")
+                    help="build, then only phase 5's kernel timing and "
+                         "Eq. 5's profile; one JSON line (to time two "
+                         "trees' kernels in one call, each with its own "
+                         "copy of this script)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1785,7 +1982,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels import ops
     if args.time_only:
         phase_build()
-        print(json.dumps({"timing": phase_time(), "device": _smi()}))
+        print(json.dumps({"timing": phase_time(), "eq5": eq5_profile(),
+                          "device": _smi()}))
         return 0
 
     import time

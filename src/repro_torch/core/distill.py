@@ -8,8 +8,9 @@ L_distill is MSE or MAE between the teacher joint latent z_A_i and the
 student latent g3(x_i).  The batch carries z_A rows (zeros where unaligned)
 and an ``aligned`` {0,1} mask; masking reproduces the per-sample case split.
 
-``use_kernel=True`` computes the per-row terms through the Eq. 5 kernels
-(forward and closed-form backward, ``kernels.ops.fused_distill_rows``).
+``use_kernel=True`` computes the loss through the Eq. 5 kernels
+(``kernels.ops.fused_distill_loss``: the rows and their mean in one
+forward launch, the closed-form backward in one launch).
 On a CUDA batch the autoencoder runs through the lane-MLP kernels either
 way: the card has no other path for it.  Like the autoencoder losses,
 these take an optional leading lane axis and then return ``(L,)``.
@@ -39,9 +40,8 @@ def distill_loss(params: dict, batch: dict, *, lam: float = 0.01,
     x, z_t, mask = batch["x"], batch["z_teacher"], batch["aligned"]
     z, x_hat = _student(params, x, use_kernel)
     if use_kernel:
-        return torch.mean(kops.fused_distill_rows(x, x_hat, z, z_t, mask,
-                                                  lam=lam, kind=kind),
-                          dim=-1)
+        return kops.fused_distill_loss(x, x_hat, z, z_t, mask, lam=lam,
+                                       kind=kind)
     rec = torch.mean(torch.square(x - x_hat), dim=-1)             # (B,)
     per_row = rec + lam * _distance(z - z_t, kind) * mask.to(rec.dtype)
     return torch.mean(per_row, dim=-1)

@@ -19,7 +19,8 @@ recurrence reads.
 The two differentiable kernels carry a ``torch.autograd.Function`` whose
 backward is the closed-form backward kernel (on the CPU its plain
 version), as the reference's ``jax.custom_vjp`` does: ``LaneMLP2`` for the
-lane-MLP and ``DistillRows`` for the Eq. 5 row loss.  The three
+lane-MLP, ``DistillRows`` for the Eq. 5 row loss and ``DistillMean`` for
+its mean, whose backward folds the mean's in.  The three
 forward-only kernels (flash attention, decode attention, the SSD block)
 refuse a CUDA input that requires grad while grad is enabled, rather than
 return an output detached from the graph; on the CPU their plain versions
@@ -143,9 +144,37 @@ def fused_lane_mlp2(xs, w0s, b0s, w1s, b1s, live, *,
 # Eq. 5 row loss
 # ---------------------------------------------------------------------------
 
+def _distill_bwd(ctx, g, mean_of: int):
+    """The Eq. 5 backward for ``DistillRows`` (row cotangents) and
+    ``DistillMean`` (the means' cotangents, ``mean_of`` rows each): one
+    launch writing the gradients autograd asks for, None for the rest."""
+    x, x_hat, z, z_t, mask = ctx.saved_tensors
+    needs = tuple(ctx.needs_input_grad[:5])
+    kw = dict(lam=ctx.lam, kind=ctx.kind, mean_of=mean_of, needs=needs)
+    if not _on_cuda(x, "fused_distill_rows"):
+        return ref.distill_bwd_ref(g.reshape(-1), x, x_hat, z, z_t, mask,
+                                   **kw)
+    from repro_torch.kernels import distill_loss
+    grads = distill_loss.launch_bwd(g.reshape(-1).contiguous(), x, x_hat, z,
+                                    z_t, mask, **kw)
+    LAUNCHES["distill_bwd"] += 1
+    return grads
+
+
+def _distill_inputs(x, x_hat, z, z_t, mask, kind, what):
+    """2-D rows (a leading lane axis folded in), contiguous on CUDA."""
+    if kind not in ("mse", "mae"):
+        raise ValueError(f"{what}: unknown kind {kind!r}")
+    D, M = x.shape[-1], z.shape[-1]
+    ts = (x.reshape(-1, D), x_hat.reshape(-1, D), z.reshape(-1, M),
+          z_t.reshape(-1, M), mask.reshape(-1).to(x.dtype))
+    return tuple(t.contiguous() for t in ts) if _on_cuda(x, what) else ts
+
+
 class DistillRows(torch.autograd.Function):
-    """Per-row Eq. 5 losses over 2-D rows; the backward returns
-    ``(dx, -dx, dz, -dz, dmask)`` as the reference's custom VJP does."""
+    """Per-row Eq. 5 losses over 2-D rows; the backward returns the
+    gradients autograd asks for of ``(dx, -dx, dz, -dz, dmask)``, as the
+    reference's custom VJP computes them."""
 
     @staticmethod
     def forward(ctx, x, x_hat, z, z_t, mask, lam, kind):
@@ -155,8 +184,6 @@ class DistillRows(torch.autograd.Function):
                                        kind=kind)
         else:
             from repro_torch.kernels import distill_loss
-            x, x_hat, z, z_t, mask = (t.contiguous() for t in
-                                      (x, x_hat, z, z_t, mask))
             out = distill_loss.launch_fwd(x, x_hat, z, z_t, mask, lam=lam,
                                           kind=kind)
             LAUNCHES["distill_fwd"] += 1
@@ -165,17 +192,34 @@ class DistillRows(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        x, x_hat, z, z_t, mask = ctx.saved_tensors
-        if not _on_cuda(x, "fused_distill_rows"):
-            dx, dz, dm = ref.distill_rows_bwd_ref(
-                g, x, x_hat, z, z_t, mask, lam=ctx.lam, kind=ctx.kind)
+        return (*_distill_bwd(ctx, g, 0), None, None)
+
+
+class DistillMean(torch.autograd.Function):
+    """Eq. 5's mean over the rows of each lane: 2-D rows of ``lead`` (the
+    callers' leading shape, lanes then rows) in, the means of shape
+    ``lead[:-1]`` out.  On CUDA the forward is one launch (rows and means)
+    and the backward one launch with the mean's backward folded in."""
+
+    @staticmethod
+    def forward(ctx, x, x_hat, z, z_t, mask, lam, kind, lead):
+        ctx.lam, ctx.kind, ctx.rows = lam, kind, lead[-1]
+        if not _on_cuda(x, "fused_distill_loss"):
+            out = torch.mean(ref.distill_rows_ref(
+                x, x_hat, z, z_t, mask, lam=lam, kind=kind).reshape(lead),
+                dim=-1)
         else:
             from repro_torch.kernels import distill_loss
-            dx, dz, dm = distill_loss.launch_bwd(
-                g.contiguous(), x, x_hat, z, z_t, mask, lam=ctx.lam,
-                kind=ctx.kind)
-            LAUNCHES["distill_bwd"] += 1
-        return dx, -dx, dz, -dz, dm, None, None
+            _, out = distill_loss.launch_fwd(x, x_hat, z, z_t, mask, lam=lam,
+                                             kind=kind, mean_of=lead[-1])
+            LAUNCHES["distill_fwd"] += 1
+            out = out.reshape(lead[:-1])
+        ctx.save_for_backward(x, x_hat, z, z_t, mask)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*_distill_bwd(ctx, g, ctx.rows), None, None, None)
 
 
 def fused_distill_rows(x, x_hat, z, z_t, mask, *, lam: float = 0.01,
@@ -183,21 +227,23 @@ def fused_distill_rows(x, x_hat, z, z_t, mask, *, lam: float = 0.01,
     """Per-row Eq. 5 losses: x/x_hat (..., B, D), z/z_t (..., B, M), mask
     (..., B); a leading lane axis is folded into the rows.  One kernel
     launch on CUDA, differentiable (``DistillRows``)."""
-    if kind not in ("mse", "mae"):
-        raise ValueError(f"fused_distill_rows: unknown kind {kind!r}")
-    lead = x.shape[:-1]
     rows = DistillRows.apply(
-        x.reshape(-1, x.shape[-1]), x_hat.reshape(-1, x.shape[-1]),
-        z.reshape(-1, z.shape[-1]), z_t.reshape(-1, z.shape[-1]),
-        mask.reshape(-1).to(x.dtype), float(lam), str(kind))
-    return rows.reshape(lead)
+        *_distill_inputs(x, x_hat, z, z_t, mask, kind, "fused_distill_rows"),
+        float(lam), str(kind))
+    return rows.reshape(x.shape[:-1])
 
 
 def fused_distill_loss(x, x_hat, z, z_t, mask, *, lam: float = 0.01,
                        kind: str = "mse"):
-    """Paper Eq. 5, the mean of ``fused_distill_rows``."""
-    return torch.mean(fused_distill_rows(x, x_hat, z, z_t, mask, lam=lam,
-                                         kind=kind))
+    """Paper Eq. 5, the mean of ``fused_distill_rows`` over the rows: a
+    scalar for 2-D rows, one mean per lane for a leading lane axis (the
+    lane convention of ``core.distill``).  One forward launch and one
+    backward launch on CUDA (``DistillMean``)."""
+    if x.shape[-2] == 0:
+        raise ValueError("fused_distill_loss: the mean of no rows")
+    return DistillMean.apply(
+        *_distill_inputs(x, x_hat, z, z_t, mask, kind, "fused_distill_loss"),
+        float(lam), str(kind), tuple(x.shape[:-1]))
 
 
 # ---------------------------------------------------------------------------

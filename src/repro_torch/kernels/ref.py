@@ -77,17 +77,41 @@ def distill_rows_bwd_ref(g, x, x_hat, z, z_t, mask, *, lam: float,
     ``g`` (``distill_loss._bwd_kernel``): returns ``(dx, dz, dmask)``;
     ``d x_hat = -dx`` and ``d z_t = -dz``.  ``sign(0) = 0``, as
     ``jnp.sign``."""
+    dx, _, dz, _, dm = distill_bwd_ref(g, x, x_hat, z, z_t, mask, lam=lam,
+                                       kind=kind)
+    return dx, dz, dm
+
+
+def distill_bwd_ref(g, x, x_hat, z, z_t, mask, *, lam: float, kind: str,
+                    mean_of: int = 0,
+                    needs=(True, False, True, False, True)):
+    """The backward kernel's interface (``distill_loss.launch_bwd``): for
+    row cotangents ``g`` (N,), or with ``mean_of=S`` the cotangents
+    (N // S,) of the means of each S consecutive rows (a row's is then
+    ``g / S``, as the mean's backward computes it on the CPU), the
+    gradients ``(dx, d x_hat, dz, d z_t, dmask)`` that ``needs`` flags,
+    None for the others; only those are computed."""
+    if mean_of:
+        g = (g.reshape(-1, 1) / mean_of).expand(-1, mean_of).reshape(-1)
     D, M = x.shape[-1], z.shape[-1]
+    out = [None] * 5
+    if needs[0] or needs[1]:
+        dx = (g.unsqueeze(-1) * (2.0 / D)) * (x - x_hat)
+        out[0], out[1] = (dx if needs[0] else None,
+                          -dx if needs[1] else None)
+    if not (needs[2] or needs[3] or needs[4]):
+        return tuple(out)
     diff = z - z_t
-    dx = (g.unsqueeze(-1) * (2.0 / D)) * (x - x_hat)
-    if kind == "mae":
-        dis = torch.mean(torch.abs(diff), dim=-1)
-        ddis = torch.sign(diff) / M
-    else:
-        dis = torch.mean(torch.square(diff), dim=-1)
-        ddis = 2.0 * diff / M
-    dz = (g * lam * mask).unsqueeze(-1) * ddis
-    return dx, dz, g * lam * dis
+    if needs[2] or needs[3]:
+        ddis = torch.sign(diff) / M if kind == "mae" else 2.0 * diff / M
+        dz = (g * lam * mask).unsqueeze(-1) * ddis
+        out[2], out[3] = (dz if needs[2] else None,
+                          -dz if needs[3] else None)
+    if needs[4]:
+        dis = torch.mean(torch.abs(diff) if kind == "mae"
+                         else torch.square(diff), dim=-1)
+        out[4] = g * lam * dis
+    return tuple(out)
 
 
 def probe_grad_ref(w, b, x, y, rwn):

@@ -63,6 +63,16 @@ def _maxerr(a, b):
     return float((a - b).abs().max())
 
 
+def _scalederr(a, b):
+    """max|a - b| over max|b| where that lies below 1, else over 1
+    (chip_smoke.py's ``_scalederr``): the relative error of gradients that
+    carry a factor 1/N."""
+    torch.cuda.synchronize()
+    scale = min(max(float(b.abs().max()), torch.finfo(torch.float32).tiny),
+                1.0)
+    return float((a - b).abs().max()) / scale
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", list(ENCODERS))
 def test_lane_mlp_fwd_matches_plain_on_card(name):
@@ -287,12 +297,13 @@ def test_int8_matmul_heads_repeat_bit_for_bit_on_card(c):
 
 
 # the kernels as they stood before their redesign, built from git into the
-# ignored build directory: the redesigns of the backward, int8 and the SSD
-# kept every sum order, so their bits must not move
+# ignored build directory: the redesigns of the backward, int8, the SSD and
+# Eq. 5 kept every sum order, so their bits must not move
 BEFORE_REDESIGN = {"lane_mlp_bwd": "ba1cb40fc083caff77ebf5316ec6d49afb092394",
                    "int8_matmul": "ba1cb40fc083caff77ebf5316ec6d49afb092394",
                    "ssd_chunk": "64a7bb6392a75af0ec712db0c0376ad1fab10090",
-                   "probe": "64a7bb6392a75af0ec712db0c0376ad1fab10090"}
+                   "probe": "64a7bb6392a75af0ec712db0c0376ad1fab10090",
+                   "distill_loss": "76aa2af0a07c532c5a7d90895e92cc22dfd38ae0"}
 
 
 def _library_before(name):
@@ -386,28 +397,219 @@ def test_int8_matmul_equals_kernel_before_redesign_on_card(layer):
         assert torch.equal(got, want), (layer, B)
 
 
+# Eq. 5 at (N, D, M): the g3 step's batch and rows around it, mimic3's
+# validation split and a 20000-row pass at D 5, M 256; then D 1, 300, 1024
+# and M 1, 1000, each with ragged 128-element chunks or none
+DISTILL_CASES = ([(n, 5, 256) for n in (1, 77, 128, 129, 2000, 20000)]
+                 + [(129, 1, 256), (77, 300, 1000), (128, 1024, 1),
+                    (2000, 1024, 1000), (20000, 300, 1000)])
+G3_NEEDS = (False, True, True, False, False)     # the g3 step: x_hat, z
+
+
+def _distill_case(seed, N, D, M, dev, offset=0):
+    """x, x_hat, z, z_t, mask with exact ties (sign(0) = 0) and rows at 0
+    and 1; ``offset`` floats in, every tensor's data starts off the 16-byte
+    boundary (contiguous views into a larger buffer)."""
+    rng = np.random.RandomState(seed)
+
+    def arr(*shape):
+        t = torch.empty(int(np.prod(shape)) + offset, device=dev)
+        t = t[offset:].view(*shape)
+        t.copy_(_randn(rng, *shape).to(dev))
+        return t
+    x, xh, z, zt = arr(N, D), arr(N, D), arr(N, M), arr(N, M)
+    zt[::3, ::4] = z[::3, ::4]
+    mask = arr(N)
+    mask.copy_(torch.from_numpy((rng.rand(N) > 0.5).astype(np.float32)))
+    return x, xh, z, zt, mask
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["mse", "mae"])
 def test_distill_rows_match_plain_on_card(kind):
+    """Both forward forms and the backward for row cotangents, for the
+    means' cotangents and with only the g3 step's gradients, against the
+    plain versions within 1e-5 (``_scalederr``); sign(0) = 0 at the ties."""
     from repro_torch.kernels import distill_loss
     dev = _card()
-    rng = np.random.RandomState(5)
-    for B, D, M in ((128, 5, 256), (77, 384, 256), (1, 5, 256)):
-        x, xh = _randn(rng, B, D).to(dev), _randn(rng, B, D).to(dev)
-        z, zt = _randn(rng, B, M).to(dev), _randn(rng, B, M).to(dev)
-        zt[::3, ::4] = z[::3, ::4]                  # sign(0) = 0
-        mask = torch.from_numpy((rng.rand(B) > 0.5).astype(np.float32)
-                                ).to(dev)
-        g = _randn(rng, B).to(dev)
-        got = distill_loss.launch_fwd(x, xh, z, zt, mask, lam=0.3, kind=kind)
-        want = ref.distill_rows_ref(x, xh, z, zt, mask, lam=0.3, kind=kind)
-        assert _maxerr(got, want) <= 1e-5
-        got = distill_loss.launch_bwd(g, x, xh, z, zt, mask, lam=0.3,
-                                      kind=kind)
-        want = ref.distill_rows_bwd_ref(g, x, xh, z, zt, mask, lam=0.3,
-                                        kind=kind)
-        for a, b in zip(got, want):
-            assert _maxerr(a, b) <= 1e-5
+    kw = dict(lam=0.3, kind=kind)
+    for N, D, M in DISTILL_CASES:
+        args = _distill_case(N + D, N, D, M, dev)
+        rng = np.random.RandomState(N)
+        want = ref.distill_rows_ref(*args, **kw)
+        assert _scalederr(distill_loss.launch_fwd(*args, **kw), want) <= 1e-5
+        S = N if N % 2 else N // 2                  # one or two segments
+        rows, means = distill_loss.launch_fwd(*args, mean_of=S, **kw)
+        assert _scalederr(rows, want) <= 1e-5
+        assert _scalederr(means, torch.mean(want.reshape(-1, S), -1)) <= 1e-5
+        for g, mean_of, needs in (
+                (_randn(rng, N).to(dev), 0, (True,) * 5),
+                (_randn(rng, N // S).to(dev), S, (True,) * 5),
+                (torch.ones(1, device=dev), N, G3_NEEDS)):
+            got = distill_loss.launch_bwd(g, *args, mean_of=mean_of,
+                                          needs=needs, **kw)
+            want_g = ref.distill_bwd_ref(g, *args, mean_of=mean_of,
+                                         needs=needs, **kw)
+            for a, b, need in zip(got, want_g, needs):
+                assert (a is None) == (not need)
+                if need:
+                    assert _scalederr(a, b) <= 1e-5, (N, D, M, mean_of)
+            if kind == "mae" and needs[2]:
+                assert not bool(got[2][::3, ::4].any())
+
+
+def _distill_before(lib, x, xh, z, zt, mask, lam, kind, g=None):
+    """The kernel before its redesign through its C interface: the rows,
+    or for row cotangents ``g`` its ``(dx, dz, dmask)``."""
+    import ctypes
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.distill_fwd.argtypes = [P] * 6 + [I] * 3 + [F, I, P]
+    lib.distill_bwd.argtypes = [P] * 9 + [I] * 3 + [F, I, P]
+    (N, D), M = x.shape, z.shape[1]
+    mae = int(kind == "mae")
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [t.data_ptr() for t in (x, xh, z, zt, mask)]
+    if g is None:
+        out = torch.empty(N, device=x.device)
+        rc = lib.distill_fwd(*ptrs, out.data_ptr(), N, D, M, lam, mae,
+                             stream)
+        assert rc == 0
+        return out
+    dx, dz, dm = torch.empty_like(x), torch.empty_like(z), \
+        torch.empty_like(mask)
+    rc = lib.distill_bwd(g.data_ptr(), *ptrs, dx.data_ptr(), dz.data_ptr(),
+                         dm.data_ptr(), N, D, M, lam, mae, stream)
+    assert rc == 0
+    return dx, dz, dm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["mse", "mae"])
+def test_distill_rows_equal_kernel_before_redesign_on_card(kind):
+    """The redesign keeps each row's sum order: both forms' rows are the
+    old kernel's bits, at aligned and misaligned row starts; each mean is
+    within 1e-6 relative of ``torch.mean`` of the rows (its own sum
+    order)."""
+    from repro_torch.kernels import distill_loss
+    dev = _card()
+    lib = _library_before("distill_loss")
+    kw = dict(lam=0.3, kind=kind)
+    for (N, D, M), offset in itertools.product(DISTILL_CASES, (0, 1)):
+        x, xh, z, zt, mask = _distill_case(N + offset, N, D, M, dev, offset)
+        # as drawn, then with x_hat = x (the rows are lam * mask * dis, so
+        # every bit of the dis sum shows) and with z_t = z (the rows are
+        # rec)
+        for args in ((x, xh, z, zt, mask), (x, x, z, zt, mask),
+                     (x, xh, z, z, mask)):
+            old = _distill_before(lib, *args, 0.3, kind)
+            rows = distill_loss.launch_fwd(*args, **kw)
+            rows_m, mean = distill_loss.launch_fwd(*args, mean_of=N, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(rows, old), (N, D, M, offset)
+            assert torch.equal(rows_m, old), (N, D, M, offset)
+            want = torch.mean(old)
+            assert float((mean[0] - want).abs()) <= 1e-6 * float(
+                want.abs()), (N, D, M, offset)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["mse", "mae"])
+def test_distill_grads_equal_old_composition_on_card(kind):
+    """g3's gradients keep their bits: ``fused_distill_loss``'s d x_hat
+    and dz (one backward launch) against the old kernel's backward fed the
+    row cotangents of PyTorch's own mean backward, then negated, as the
+    path ran before the redesign; at a loss cotangent of 1 and 0.37, and
+    all five gradients (dmask too) when every input needs one.  The rows
+    form for random row cotangents likewise."""
+    dev = _card()
+    lib = _library_before("distill_loss")
+    for (N, D, M), offset in itertools.product(DISTILL_CASES, (0, 1)):
+        args = _distill_case(N + 7 * offset, N, D, M, dev, offset)
+        old_rows = _distill_before(lib, *args, 0.3, kind)
+        for cot, needs in ((1.0, G3_NEEDS), (0.37, G3_NEEDS),
+                           (1.0, (True,) * 5)):
+            ts = [t.detach().requires_grad_(n) for t, n in zip(args, needs)]
+            loss = ops.fused_distill_loss(*ts, lam=0.3, kind=kind)
+            c = torch.tensor(cot, device=dev)
+            got = torch.autograd.grad(loss, [t for t in ts if t.requires_grad],
+                                      c)
+            r = old_rows.clone().requires_grad_(True)
+            (gr,) = torch.autograd.grad(torch.mean(r), r, c)
+            dx, dz, dm = _distill_before(lib, *args, 0.3, kind, gr)
+            want = [w for w, n in zip((dx, -dx, dz, -dz, dm), needs) if n]
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (N, D, M, offset, cot, needs)
+        ts = [t.detach().requires_grad_(True) for t in args]
+        g = _randn(np.random.RandomState(N), N).to(dev)
+        got = torch.autograd.grad(ops.fused_distill_rows(
+            *ts, lam=0.3, kind=kind), ts, g)
+        dx, dz, dm = _distill_before(lib, *args, 0.3, kind, g)
+        for a, b in zip(got, (dx, -dx, dz, -dz, dm)):
+            assert torch.equal(a, b), (N, D, M, offset, "rows")
+
+
+@pytest.mark.gpu
+def test_distill_repeats_bit_for_bit_on_card():
+    """No atomics, a fixed sum order: the mean form's rows and means and
+    the backward give the same bits on every launch."""
+    from repro_torch.kernels import distill_loss
+    dev = _card()
+    for N, D, M in ((128, 5, 256), (2000, 5, 256), (20000, 1024, 1000)):
+        args = _distill_case(N, N, D, M, dev)
+        g = torch.full((1,), 0.37, device=dev)
+        runs = [(*distill_loss.launch_fwd(*args, lam=0.01, kind="mse",
+                                          mean_of=N),
+                 *distill_loss.launch_bwd(g, *args, lam=0.01, kind="mse",
+                                          mean_of=N, needs=(True,) * 5))
+                for _ in range(3)]
+        torch.cuda.synchronize()
+        for run in runs[1:]:
+            for a, b in zip(run, runs[0]):
+                assert torch.equal(a, b), (N, D, M)
+
+
+@pytest.mark.gpu
+def test_distill_refuses_what_it_cannot_take_on_card():
+    from repro_torch.kernels import distill_loss
+    dev = _card()
+    x, xh, z, zt, mask = _distill_case(0, 8, 5, 16, dev)
+    kw = dict(lam=0.01, kind="mse")
+    with pytest.raises(TypeError):
+        distill_loss.launch_fwd(x.double(), xh, z, zt, mask, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        distill_loss.launch_fwd(x, xh, z.t().contiguous().t(), zt, mask,
+                                **kw)
+    with pytest.raises(ValueError, match="mean_of"):
+        distill_loss.launch_fwd(x, xh, z, zt, mask, mean_of=3, **kw)
+    with pytest.raises(ValueError, match="needs"):
+        distill_loss.launch_bwd(mask, x, xh, z, zt, mask, needs=(True,), **kw)
+
+
+@pytest.mark.gpu
+def test_eq5_step_is_two_kernels_on_card():
+    """The loss of a g3 step, forward and backward with the step's
+    gradients, is two device kernels in the profiler's full list (the
+    parent's path was six) and one launch of each counter."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    dev = _card()
+    args = _distill_case(1, 128, 5, 256, dev)
+    ts = [t.detach().requires_grad_(n) for t, n in zip(args, G3_NEEDS)]
+    one = torch.ones((), device=dev)
+    step = lambda: torch.autograd.grad(
+        ops.fused_distill_loss(*ts, lam=0.01), [ts[1], ts[2]], one)
+    step()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert len(names) == 2 and all("distill" in n for n in names), names
+    assert ops.LAUNCHES["distill_fwd"] == ops.LAUNCHES["distill_bwd"] == 1
 
 
 @pytest.mark.gpu

@@ -14,12 +14,15 @@ Bounds are the reference's (``benchmarks/kernelbench.py``): lane-MLP
 gradients 1e-5 relative (max error over max(max|ref|, 1)), the Eq. 5 rows
 1e-5, the probe 1e-4.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.distill_loss import fused_distill_rows as jax_rows
 from repro.kernels.lane_mlp import fused_lane_mlp2 as jax_lane_mlp2
@@ -114,31 +117,109 @@ def _distill_arrays(seed, B=50, D=7, M=24):
     return f(B, D), f(B, D), z, zt, mask, f(B)
 
 
+LANES = (2, 25)                  # the Eq. 5 tests' lane axis over 50 rows
+# which of (x, x_hat, z, z_t, mask) require a gradient: every subset
+SUBSETS = [tuple(bool(i >> j & 1) for j in range(5)) for i in range(1, 32)]
+G3_NEEDS = (False, True, True, False, False)     # the g3 step: x_hat, z
+
+
+@functools.cache
+def _jax_distill(kind, form):
+    """The reference kernel in interpret mode on ``_distill_arrays(1)``:
+    rows, and the five gradients of the rows form (cotangent g) or of the
+    mean form over ``LANES`` (lane cotangents G, each row's G / 25)."""
+    x, xh, z, zt, mask, g = _distill_arrays(1)
+    rows, vjp = jax.vjp(lambda *a: jax_rows(*a, lam=0.3, kind=kind,
+                                            interpret=True),
+                        *map(jnp.asarray, (x, xh, z, zt, mask)))
+    cot = g if form == "rows" else np.repeat(g[:LANES[0]] / LANES[1],
+                                             LANES[1])
+    return np.asarray(rows), [np.asarray(t) for t in vjp(jnp.asarray(cot))]
+
+
+def _port_distill(kind, form, needs, monkeypatch=None):
+    """The port's Function (``DistillRows`` or ``DistillMean``) over a lane
+    axis, with ``needs`` requiring grad: its output and the gradients the
+    Function's backward returned (None where not asked for)."""
+    x, xh, z, zt, mask, g = _distill_arrays(1)
+    ts = [torch.from_numpy(a.reshape(LANES + a.shape[1:])).requires_grad_(n)
+          for a, n in zip((x, xh, z, zt, mask), needs)]
+    returned = []
+    if monkeypatch is not None:
+        plain = ref.distill_bwd_ref
+        monkeypatch.setattr(ref, "distill_bwd_ref", lambda *a, **kw:
+                            returned.append(plain(*a, **kw)) or returned[-1])
+    if form == "rows":
+        out = ops.fused_distill_rows(*ts, lam=0.3, kind=kind)
+        cot = torch.from_numpy(g.reshape(LANES))
+    else:
+        out = ops.fused_distill_loss(*ts, lam=0.3, kind=kind)
+        cot = torch.from_numpy(g[:LANES[0]])
+    torch.sum(out * cot).backward()
+    return out.detach(), ts, returned
+
+
 @pytest.mark.parametrize("kind", ["mse", "mae"])
 def test_distill_rows_fwd_bwd_match_jax_kernel(kind):
     x, xh, z, zt, mask, g = _distill_arrays(1)
     lam = 0.3
-    want, vjp = jax.vjp(lambda *a: jax_rows(*a, lam=lam, kind=kind,
-                                            interpret=True),
-                        *map(jnp.asarray, (x, xh, z, zt, mask)))
-    want_grads = vjp(jnp.asarray(g))
+    want, want_grads = _jax_distill(kind, "rows")
     t = [torch.from_numpy(a) for a in (x, xh, z, zt, mask, g)]
     rows = ref.distill_rows_ref(*t[:5], lam=lam, kind=kind)
     np.testing.assert_allclose(rows.numpy(), want, atol=1e-5, rtol=0)
     dx, dz, dm = ref.distill_rows_bwd_ref(t[5], *t[:5], lam=lam, kind=kind)
     for a, b in zip((dx, -dx, dz, -dz, dm), want_grads):
         np.testing.assert_allclose(a.numpy(), b, atol=1e-5, rtol=0)
-    # the autograd Function, with a lane axis folded into the rows
-    ts = [torch.from_numpy(a.reshape(2, 25, *a.shape[1:]))
-          .requires_grad_(True) for a in (x, xh, z, zt, mask)]
-    out = ops.fused_distill_rows(*ts, lam=lam, kind=kind)
-    assert out.shape == (2, 25)
-    torch.sum(out * torch.from_numpy(g.reshape(2, 25))).backward()
-    np.testing.assert_allclose(out.detach().numpy().reshape(-1), want,
-                               atol=1e-5, rtol=0)
-    for a, b in zip(ts, want_grads):
-        np.testing.assert_allclose(a.grad.numpy().reshape(b.shape), b,
-                                   atol=1e-5, rtol=0)
+    # the autograd Functions, with a lane axis folded into the rows: the
+    # rows form and the mean form (one mean a lane)
+    for form in ("rows", "mean"):
+        out, ts, _ = _port_distill(kind, form, (True,) * 5)
+        rows_w, grads_w = _jax_distill(kind, form)
+        if form == "rows":
+            assert out.shape == LANES
+            np.testing.assert_allclose(out.numpy().reshape(-1), rows_w,
+                                       atol=1e-5, rtol=0)
+        else:
+            assert out.shape == LANES[:1]
+            np.testing.assert_allclose(
+                out.numpy(), rows_w.reshape(LANES).mean(-1), atol=1e-5,
+                rtol=0)
+        for a, b in zip(ts, grads_w):
+            np.testing.assert_allclose(a.grad.numpy().reshape(b.shape), b,
+                                       atol=1e-5, rtol=0)
+    # the mean form on 2-D rows against the reference's public wrapper
+    ts = [torch.from_numpy(a).requires_grad_(True)
+          for a in (x, xh, z, zt, mask)]
+    got = ops.fused_distill_loss(*ts, lam=lam, kind=kind)
+    assert got.shape == ()
+    got.backward()
+    want_v, want_g = jax.value_and_grad(
+        lambda a: jops.fused_distill_loss(*a, lam=lam, kind=kind))(
+        tuple(map(jnp.asarray, (x, xh, z, zt, mask))))
+    assert abs(float(got.detach()) - float(want_v)) <= 1e-5
+    for a, b in zip(ts, want_g):
+        np.testing.assert_allclose(a.grad.numpy(), b, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["mse", "mae"])
+@pytest.mark.parametrize("needs", SUBSETS,
+                         ids=lambda n: "".join("1" if b else "0" for b in n))
+@pytest.mark.parametrize("form", ["rows", "mean"])
+def test_distill_grad_subsets_match_jax_kernel(form, needs, kind,
+                                               monkeypatch):
+    """Each subset of inputs requiring grad (``G3_NEEDS`` is the g3 step's):
+    the Function's backward computes those gradients, within 1e-5 of the
+    reference kernel's, and returns None for the others."""
+    out, ts, returned = _port_distill(kind, form, needs, monkeypatch)
+    _, want = _jax_distill(kind, form)
+    assert len(returned) == 1
+    for t, w, got, need in zip(ts, want, returned[0], needs):
+        assert (got is None) == (not need)
+        if need:
+            np.testing.assert_allclose(t.grad.numpy().reshape(w.shape), w,
+                                       atol=1e-5, rtol=0)
+        else:
+            assert t.grad is None
 
 
 def test_distill_loss_is_the_mean_of_the_rows():
@@ -148,6 +229,15 @@ def test_distill_loss_is_the_mean_of_the_rows():
     want = float(jref.fused_distill_loss_ref(*map(jnp.asarray,
                                                   (x, xh, z, zt, mask))))
     assert abs(got - want) <= 1e-6
+    # a leading lane axis: one mean a lane, each the reference's
+    lanes = ops.fused_distill_loss(*(a.reshape(LANES + a.shape[1:])
+                                     for a in t), lam=0.01)
+    assert lanes.shape == LANES[:1]
+    for i in range(LANES[0]):
+        part = slice(i * LANES[1], (i + 1) * LANES[1])
+        want = float(jref.fused_distill_loss_ref(
+            *(jnp.asarray(a[part]) for a in (x, xh, z, zt, mask))))
+        assert abs(float(lanes[i]) - want) <= 1e-6
 
 
 def _probe_arrays(seed, n=150, d=24, C=4, k=3):

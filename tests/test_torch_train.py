@@ -23,6 +23,7 @@ from repro_torch import convert
 from repro_torch.core import autoencoder as tae
 from repro_torch.core import distill as tdistill
 from repro_torch.core import training as ttraining
+from repro_torch.kernels import ops as kops
 from repro_torch.optim import adam as tadam
 from repro_torch.tree import tree_leaves
 
@@ -204,6 +205,18 @@ def test_distill_losses_match_reference(kind, lanes, use_kernel):
     assert abs(vt - float(vj)) <= 1e-6
     for a, b in zip(gt, jax.tree.leaves(gj)):
         assert _relerr(a, b) <= REL
+    if use_kernel and not lanes:
+        # the mean form gives the bits of the rows form followed by
+        # torch.mean, the loss and every parameter's gradient
+        def rows_then_mean(params, b):
+            z, x_hat = tdistill._student(params, b["x"], True)
+            return torch.mean(kops.fused_distill_rows(
+                b["x"], x_hat, z, b["z_teacher"], b["aligned"], lam=0.3,
+                kind=kind), dim=-1)
+        vo, go = _value_and_grads(rows_then_mean, _t(p), batch)
+        assert vt == vo
+        for a, b in zip(gt, go):
+            np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("use_kernel", [False, True])

@@ -4,9 +4,10 @@ stands, copies of it with one part taken out, and, for the two cluster
 kernels, the unchanged kernel at each thread-block cluster size, timed at
 the main path's shapes.
 
-    python3 tools/kernel_variants.py [decode lane bwd int8 ssd probe ...]
+    python3 tools/kernel_variants.py [decode lane bwd int8 ssd probe
+                                      distill ...] [--before-distill CU]
 
-Builds ``csrc/<source>.cu`` of each named group (default: all six) with
+Builds ``csrc/<source>.cu`` of each named group (default: all seven) with
 its variants (one ``nvcc`` each, all started together) into
 ``src/repro_torch/kernels/build/variants/`` (ignored by git) and times each
 with ``chip_smoke.graph_ms`` (CUDA events over CUDA-graph replays; inputs
@@ -21,7 +22,12 @@ autoencoder MLPs at the training batch of 128; the int8 matmul at the
 quantized active path's three layers at buckets 256 and 16; the SSD
 intra-chunk block at zamba2's ``prefill_step`` (B 2, S 2048, H 80, N = P =
 64, Lc 256, fp32); the probe step at phase 5's 10 fold lanes over mimic3's
-active rows (d 256, C 4).
+active rows (d 256, C 4); Eq. 5 (``distill``) at step 3's batch of 128
+rows, D 5, M 256: each form of each kernel and a g3 step's whole loss,
+and the mean form on other cluster, grid and block shapes; then the mean
+form at the validation pass's 2,000 rows and at 20,000, beside the rows
+form then ``torch.mean`` (with ``--before-distill``, also the kernel
+before the mean form's rows then ``torch.mean``).
 
 The edits match the kernels' sources as they stand.  To split a kernel as
 it stood before a redesign, unpack that commit (``git archive``) and run
@@ -145,8 +151,57 @@ PROBE = {
     # the second launch, the blocks' partials summed, left out
     "no tile sum": ("    probe_sum<<<", "    if (false) probe_sum<<<"),
 }
+DISTILL = {
+    # the mean form without its cluster reduction (rows only, no barrier)
+    "no mean reduction": (
+        "    cluster_wait();                     // every block of the "
+        "cluster runs\n", "    return;\n"),
+    # the chunks' elements summed in arrival order, without the shuffles
+    "no old_order shuffles": (
+        "  return make_float4(got[0], got[1], got[2], got[3]);",
+        "  return e;"),
+    # the mean form on one cluster, or on the cooperative grid, at every N
+    "cluster at every N": ("  if (S <= CLUSTER_ROWS) {", "  if (true) {"),
+    "grid at every N": ("  if (S <= CLUSTER_ROWS) {", "  if (false) {"),
+    # the cooperative grid with half or a quarter of its blocks (two or four
+    # rows a warp)
+    "grid of half the blocks": (
+        "min((S + ROWS_WARPS - 1) / ROWS_WARPS, fit)",
+        "min((S + 2 * ROWS_WARPS - 1) / (2 * ROWS_WARPS), fit)"),
+    "grid of a quarter the blocks": (
+        "min((S + ROWS_WARPS - 1) / ROWS_WARPS, fit)",
+        "min((S + 4 * ROWS_WARPS - 1) / (4 * ROWS_WARPS), fit)"),
+    # the mean form's cluster: one block, or 8 blocks, whatever the rows
+    "mean on one block": ("  while (C < CLUSTER_MAX && C * FWD_WARPS < S) "
+                          "C <<= 1;", ""),
+    "mean on 8 blocks": ("  while (C < CLUSTER_MAX && C * FWD_WARPS < S) "
+                         "C <<= 1;", "  C = CLUSTER_MAX;"),
+    # no row read from memory: the sums run on zeros (the loads' trip)
+    "no row loads": [
+        ("    if (i < nc) {\n      va = __ldg",
+         "    if (false) {\n      va = __ldg"),
+        ("    } else if (elem(i, l) < K) {\n      va.x = __ldg",
+         "    } else if (false) {\n      va.x = __ldg")],
+    # every row element by element in the old order: no 16-byte loads and
+    # no shuffles
+    "scalar strided loads only": ("nc(vec ? K_ / CHUNK : 0)", "nc(0)"),
+    # ... with a lane's next 4 or 8 items of each pair loaded at once
+    "scalar loads, 4 at once": [("nc(vec ? K_ / CHUNK : 0)", "nc(0)"),
+                                ("int ITEMS = 2;", "int ITEMS = 4;")],
+    "scalar loads, 8 at once": [("nc(vec ? K_ / CHUNK : 0)", "nc(0)"),
+                                ("int ITEMS = 2;", "int ITEMS = 8;")],
+    # the backward's blocks of 256 threads (half the blocks)
+    "backward blocks of 256": ("constexpr int BWD_THREADS = 128;",
+                               "constexpr int BWD_THREADS = 256;"),
+    # the mean form's blocks of 1024 or 256 threads (fewer or more blocks
+    # a cluster)
+    "mean blocks of 1024": ("constexpr int FWD_THREADS = 512;",
+                            "constexpr int FWD_THREADS = 1024;"),
+    "mean blocks of 256": ("constexpr int FWD_THREADS = 512;",
+                           "constexpr int FWD_THREADS = 256;"),
+}
 CLUSTERS = (1, 2, 4, 8)
-GROUPS = ("decode", "lane", "bwd", "int8", "ssd", "probe")
+GROUPS = ("decode", "lane", "bwd", "int8", "ssd", "probe", "distill")
 
 
 def _bound(loader, so: str):
@@ -162,11 +217,44 @@ def _bound(loader, so: str):
         _build.library = real
 
 
+def _distill_before(cu: str):
+    """The rows of the Eq. 5 kernel at ``cu`` (the C interface before the
+    mean form: ``distill_fwd(x, xh, z, zt, mask, out, N, D, M, lam, mae,
+    stream)``), built once, as a function of (x, xh, z, zt, mask) for MSE
+    at step 3's lam."""
+    import subprocess
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import _build
+    so = os.path.join(_build.BUILD_DIR, "variants", "distill_before.so")
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", so, cu],
+                   check=True)
+    lib = ctypes.CDLL(so)
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.distill_fwd.argtypes = [P] * 6 + [I] * 3 + [F, I, P]
+
+    def rows(x, xh, z, zt, mask):
+        (N, D), M = x.shape, z.shape[1]
+        out = torch.empty(N, device=x.device)
+        rc = lib.distill_fwd(*(t.data_ptr() for t in (x, xh, z, zt, mask)),
+                             out.data_ptr(), N, D, M, cs.DISTILL["lam"], 0,
+                             torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise SystemExit(f"distill before: CUDA error {rc}")
+        return out
+    return rows
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("groups", nargs="*",
                     help=f"any of {', '.join(GROUPS)} (default: all)")
+    ap.add_argument("--before-distill", metavar="CU",
+                    help="the Eq. 5 kernel before its mean form (C "
+                         "interface of 76aa2af): also time its rows, then "
+                         "torch.mean, at each mean-form shape")
     args = ap.parse_args(argv)
     groups = args.groups or list(GROUPS)
     if set(groups) - set(GROUPS):
@@ -179,6 +267,7 @@ def main(argv=None) -> int:
     from _faults import build_variants
     from repro_torch.kernels import _build, _launch, ops
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import distill_loss as dl
     from repro_torch.kernels import int8_matmul as i8
     from repro_torch.kernels import lane_mlp as lm
     from repro_torch.kernels import probe as pr
@@ -202,7 +291,9 @@ def main(argv=None) -> int:
                     lambda so: _bound(sc._lib, so)),
             "probe": (pr, "_lib", "probe",
                       PROBE,
-                      lambda so: _bound(pr._lib, so))}
+                      lambda so: _bound(pr._lib, so)),
+            "distill": (dl, "_lib", "distill_loss", DISTILL,
+                        lambda so: _bound(dl._lib, so))}
     libs, ptxas = {}, {}
     for grp in groups:
         module, attr, source, edits, bind = spec[grp]
@@ -217,7 +308,7 @@ def main(argv=None) -> int:
             print(f"{grp} | {n}: (registers, spill bytes) "
                   f"{ptxas[grp][n]}", flush=True)
     gen = torch.Generator().manual_seed(0)
-    cases = []
+    cases, before = [], []
     if "decode" in groups:
         B, W, pos = cs.LM["batch"], cs.LM["slots"], cs.LM["slots"] // 2 - 1
         sp = torch.where(torch.arange(W) <= pos, torch.arange(W), -1).to(
@@ -263,6 +354,32 @@ def main(argv=None) -> int:
         rwn = rw / rw.sum(-1, keepdim=True).clamp(min=1.0)
         cases.append(("probe", f"{k} fold lanes n={n} d={d} C={C}",
                       lambda a=(w, b, x, y, rwn): pr.launch(*a)))
+    if "distill" in groups:
+        B, D, M, lam = cs.TRAIN_B, cs.DISTILL["D"], cs.DISTILL["M"], \
+            cs.DISTILL["lam"]
+        a = cs._distill_inputs(gen, B, D, M)
+        kw = dict(lam=lam, kind="mse")
+        one = torch.ones(1, device="cuda")
+        for what, fn in (
+                ("forward, mean form", lambda: dl.launch_fwd(
+                    *a, mean_of=B, **kw)),
+                ("forward, rows form", lambda: dl.launch_fwd(*a, **kw)),
+                ("backward, g3 form", lambda: dl.launch_bwd(
+                    one, *a, mean_of=B, needs=cs.G3_NEEDS, **kw)),
+                ("a g3 step's loss", cs._eq5_step(a, lam))):
+            cases.append(("distill", f"{what} B={B} D={D} M={M}", fn))
+        # the validation pass (a tenth of mimic3's or credit's 20,000 rows,
+        # D 5 at both) and the whole of either, also at the widest rows
+        for N, Dn, Mn in ((2000, D, M), (20000, D, M), (20000, 1024, 1000)):
+            an = cs._distill_inputs(gen, N, Dn, Mn)
+            for what, fn in (
+                    ("forward, mean form", lambda a=an, N=N: dl.launch_fwd(
+                        *a, mean_of=N, **kw)),
+                    ("forward, rows form then torch.mean",
+                     lambda a=an: torch.mean(dl.launch_fwd(*a, **kw)))):
+                cases.append(("distill", f"{what} N={N} D={Dn} M={Mn}", fn))
+            if args.before_distill:
+                before.append((f"N={N} D={Dn} M={Mn}", an))
     summary = {}
     cluster_size = _launch.cluster_size
     for kernel, shape, fn in cases:
@@ -284,6 +401,13 @@ def main(argv=None) -> int:
         finally:
             _launch.cluster_size = cluster_size
             setattr(module, attr, loader)
+    if before:
+        lib = _distill_before(args.before_distill)
+        for shape, a in before:
+            t = cs.graph_ms(lambda a=a: torch.mean(lib(*a))) * 1e3
+            summary.setdefault("distill_before", {})[shape] = t
+            print(f"distill before, rows then torch.mean {shape}: {t:.3f} us",
+                  flush=True)
     smi = cs._smi()
     print(smi)
     print(json.dumps({"device": smi, "us": summary, "ptxas": ptxas}))
