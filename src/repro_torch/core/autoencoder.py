@@ -22,7 +22,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ref import selu
+from repro_torch.kernels.ref import lane_matmul, selu
 
 
 def table3_encoder(role: str, n_features: int) -> list:
@@ -64,7 +64,7 @@ def mlp_apply(params: dict, x: torch.Tensor, *,
               final_act: bool = False) -> torch.Tensor:
     n = _n_layers(params)
     for i in range(n):
-        x = x @ params[f"w{i}"] + params[f"b{i}"].unsqueeze(-2)
+        x = lane_matmul(x, params[f"w{i}"]) + params[f"b{i}"].unsqueeze(-2)
         if i < n - 1 or final_act:
             x = selu(x)
     return x

@@ -6,8 +6,8 @@ Every transfer carries a *direction* and a *stage* so a channel can report
 per-direction (uplink/downlink) and per-stage byte totals.  ``uplink``
 flows toward the aggregating side (the active participant), ``downlink``
 away from it.  ``Channel.summary()`` returns a JSON-ready dict of the
-measured totals, key for key the reference's.  (``summarize``, which
-merges the links of a K-party run, comes with the K-party slice.)
+measured totals, key for key the reference's; ``summarize`` merges the
+links of a K-party run into one summary.
 
 All analytic formulas assume 4-byte floats, as in the paper.
 """
@@ -15,7 +15,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 from math import ceil
-from typing import List, NamedTuple
+from typing import Iterable, List, NamedTuple
 
 import numpy as np
 import torch
@@ -115,6 +115,15 @@ def exchange_array(channel: Channel, what: str, z, *, transform=None,
             "yet: they land with the port's robustness slice")
     channel.send_array(what, z, direction=direction)
     return z
+
+
+def summarize(channels: Iterable[Channel]) -> dict:
+    """Aggregate several per-link channels into one ``summary()``-shaped
+    dict (bytes and transfer counts sum; stages merge)."""
+    total = Channel()
+    for ch in channels:
+        total.log.extend(ch.log)
+    return total.summary()
 
 
 # --- Appendix E.1: APC-VFL -------------------------------------------------

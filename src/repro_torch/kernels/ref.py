@@ -35,11 +35,24 @@ def _t(w: torch.Tensor) -> torch.Tensor:
     return w.transpose(-1, -2)
 
 
+def lane_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b``; over a leading lane axis on the CPU, one product a lane.
+    The CPU's batched product picks its blocking by the batch count, so
+    one lane's bits would depend on how many lanes ride with it (and Adam
+    turns such float noise on near-zero gradients into whole steps); a
+    2-D product a lane gives each lane the bits of its own fit, whatever
+    the stack, as the reference's vmapped lanes do.  A 2-D ``b`` (one
+    weight for every lane) broadcasts as ``a @ b``.  Differentiable."""
+    if a.dim() == 3 and b.dim() == 3 and a.device.type == "cpu":
+        return torch.stack([u @ v for u, v in zip(a, b)])
+    return a @ b
+
+
 def mlp2_fwd_ref(x, w0, b0, w1, b1, *, final_act: bool = False):
     """``(out, a1, a2)``: the forward and the two pre-activations the
     backward needs (``lane_mlp._fwd_kernel``)."""
-    a1 = x @ w0 + b0.unsqueeze(-2)
-    a2 = selu(a1) @ w1 + b1.unsqueeze(-2)
+    a1 = lane_matmul(x, w0) + b0.unsqueeze(-2)
+    a2 = lane_matmul(selu(a1), w1) + b1.unsqueeze(-2)
     return (selu(a2) if final_act else a2), a1, a2
 
 
@@ -53,12 +66,12 @@ def mlp2_bwd_ref(g, x, a1, a2, w0, w1, final_act: bool = False):
     """Closed-form backward of ``mlp2_ref`` for the output cotangent ``g``
     (``lane_mlp._bwd_kernel``): returns ``(dx, dw0, db0, dw1, db1)``."""
     g2 = g * dselu(a2) if final_act else g
-    dw1 = _t(selu(a1)) @ g2
+    dw1 = lane_matmul(_t(selu(a1)), g2)
     db1 = g2.sum(-2)
-    g1 = (g2 @ _t(w1)) * dselu(a1)
-    dw0 = _t(x) @ g1
+    g1 = lane_matmul(g2, _t(w1)) * dselu(a1)
+    dw0 = lane_matmul(_t(x), g1)
     db0 = g1.sum(-2)
-    return g1 @ _t(w0), dw0, db0, dw1, db1
+    return lane_matmul(g1, _t(w0)), dw0, db0, dw1, db1
 
 
 def distill_rows_ref(x, x_hat, z, z_t, mask, *, lam: float, kind: str):

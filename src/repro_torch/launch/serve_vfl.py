@@ -9,6 +9,7 @@ Run:  PYTHONPATH=src python -m repro_torch.launch.serve_vfl --smoke
           --load /tmp/apcvfl --dataset bcw --aligned 150 --requests 1000
       ... --quantize int8          # int8 active path (int8 matmul kernel)
       ... --device cpu             # the plain path, no card needed
+      ... --n-parties 3            # one active and two passive parties
 
 Without ``--load`` it trains ``run_apcvfl`` with ``use_kernel=True`` (on
 the card every autoencoder and the Eq. 5 loss go through the kernels),
@@ -18,8 +19,10 @@ serves the reloaded copy.  ``--load`` serves an existing bundle from
 either package (both write the same checkpoint format); the scenario is
 rebuilt only to source request features.  The engine is warmed over
 every bucket shape before the stream (on CUDA that builds and loads the
-kernels), so the stream's latencies are serving, not set-up.  K-party
-training (``--n-parties``), the arrival-clocked runtime (``--arrival
+kernels), so the stream's latencies are serving, not set-up.
+``--n-parties K`` (K > 2) trains ``multiparty.run_apcvfl_k`` on a K-party
+split instead (``make_scenario_k``); the bundle caches the concat of the
+K-1 passive latent blocks.  The arrival-clocked runtime (``--arrival
 poisson|bursty``) and ``--fault`` are not ported yet.
 """
 from __future__ import annotations
@@ -35,7 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import pipeline
+from repro_torch.core import multiparty, pipeline
 from repro_torch.data.synthetic import make_dataset
 from repro_torch.data.vertical import make_scenario
 from repro_torch.serve import quant
@@ -48,7 +51,7 @@ def main(argv=None) -> int:
     ap.add_argument("--dataset", default="bcw")
     ap.add_argument("--aligned", type=int, default=150)
     ap.add_argument("--n-parties", type=int, default=2,
-                    help="only 2 (one active, one passive party) is ported")
+                    help="parties: one active, the rest passive")
     ap.add_argument("--active-features", type=int, default=5)
     ap.add_argument("--epochs", type=int, default=30)
     ap.add_argument("--seed", type=int, default=0)
@@ -85,9 +88,8 @@ def main(argv=None) -> int:
     if args.smoke:
         args.epochs = min(args.epochs, 2)
         args.requests = min(args.requests, 300)
-    if args.n_parties != 2:
-        ap.error("K-party scenarios (--n-parties != 2) land with a later "
-                 "slice of the port (core/multiparty.py)")
+    if args.n_parties < 2:
+        ap.error("--n-parties needs at least 2 (one active, one passive)")
     if args.arrival != "stream" or args.fault:
         ap.error("--arrival poisson|bursty and --fault need the live "
                  "serving runtime, which lands in a later slice of the "
@@ -95,8 +97,14 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
 
     ds = make_dataset(args.dataset, seed=args.seed)
-    sc = make_scenario(ds, n_active_features=args.active_features,
-                       n_aligned=args.aligned, seed=args.seed)
+    if args.n_parties == 2:
+        sc = make_scenario(ds, n_active_features=args.active_features,
+                           n_aligned=args.aligned, seed=args.seed)
+    else:
+        sc = multiparty.make_scenario_k(
+            ds, n_parties=args.n_parties,
+            n_active_features=args.active_features,
+            n_aligned=args.aligned, seed=args.seed)
     train_info = None
     if args.load:
         bundle = sv.ModelBundle.load(args.load)
@@ -161,14 +169,16 @@ def main(argv=None) -> int:
 
 
 def _train_and_export(args, sc, device):
-    """Train ``run_apcvfl`` through the kernels, export, save, reload and
-    check the round trip.  Returns the reloaded bundle and a JSON-ready
-    summary of the training run."""
-    print(f"training apcvfl on {args.dataset} (aligned={args.aligned}, "
-          f"epochs<={args.epochs}) on {device} ...")
+    """Train ``run_apcvfl`` (``run_apcvfl_k`` for K > 2 parties) through
+    the kernels, export, save, reload and check the round trip.  Returns
+    the reloaded bundle and a JSON-ready summary of the training run."""
+    print(f"training apcvfl on {args.dataset} (K={args.n_parties}, "
+          f"aligned={args.aligned}, epochs<={args.epochs}) on {device} ...")
+    run = (pipeline.run_apcvfl if args.n_parties == 2
+           else multiparty.run_apcvfl_k)
     t0 = time.perf_counter()
-    result = pipeline.run_apcvfl(sc, seed=args.seed, max_epochs=args.epochs,
-                                 use_kernel=True, device=device)
+    result = run(sc, seed=args.seed, max_epochs=args.epochs,
+                 use_kernel=True, device=device)
     seconds = time.perf_counter() - t0
     print(f"trained in {seconds:.1f}s: acc={result.metrics['accuracy']:.4f} "
           f"epochs={result.epochs}")
@@ -186,7 +196,8 @@ def _train_and_export(args, sc, device):
     print(f"bundle saved -> {where} (round-trip verified, "
           f"{reloaded.meta['n_cached']} cached latents)")
     info = {"seconds": seconds, "metrics": result.metrics,
-            "epochs": result.epochs, "comm": result.comm,
+            "rounds": result.rounds, "epochs": result.epochs,
+            "comm": result.comm,
             "train_loss": result.train_loss, "steps": result.steps,
             "stage_seconds": result.seconds}
     return reloaded, info

@@ -62,7 +62,8 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
                 "models.attention", "models.transformer", "models.model",
                 "serve.decode", "serve.engine", "launch.serve",
                 "configs.zamba2_2_7b", "kernels.ssd_chunk", "models.mamba2",
-                "models.hybrid"):
+                "models.hybrid", "core.splitnn", "core.fedsvd",
+                "core.vfedtrans", "core.multiparty"):
         assert f"repro_torch.{mod}" in r.stdout.split(), mod
 
 
@@ -87,15 +88,20 @@ def test_engine_without_device_raises_on_host_without_card():
 
 def test_entry_points_default_to_cuda():
     from repro_torch import convert
-    from repro_torch.core import autoencoder, classifier, pipeline
+    from repro_torch.core import (autoencoder, classifier, multiparty,
+                                  pipeline, splitnn, vfedtrans)
     from repro_torch.serve import quant, vfl
     for fn in (vfl.VFLServingEngine.__init__, vfl.RepresentationCache,
                autoencoder.init_mlp, autoencoder.init_autoencoder,
                quant.quantize_active_path, quant.parity_report,
                convert.to_torch, pipeline.run_apcvfl,
                pipeline.run_apcvfl_aligned_only, pipeline.run_local_baseline,
+               pipeline.run_apcvfl_replicated,
+               pipeline.run_apcvfl_aligned_only_replicated,
                classifier.init_logreg, classifier.kfold_cv,
-               classifier.kfold_cv_many):
+               classifier.kfold_cv_many, splitnn.init_splitnn,
+               splitnn.run_splitnn, vfedtrans.run_vfedtrans,
+               multiparty.run_apcvfl_k, multiparty.run_apcvfl_k_replicated):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     from repro_torch.launch import serve, serve_vfl
     from repro_torch.serve import engine

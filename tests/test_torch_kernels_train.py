@@ -240,6 +240,26 @@ def test_distill_loss_is_the_mean_of_the_rows():
         assert abs(float(lanes[i]) - want) <= 1e-6
 
 
+@pytest.mark.parametrize("weights", ["one a lane", "shared"])
+def test_lane_matmul_lanes_do_not_depend_on_the_stack(weights):
+    """``ref.lane_matmul`` on the CPU: with a weight a lane, each lane has
+    the bits of its own 2-D product whatever lanes ride with it; with one
+    2-D weight for every lane it is ``a @ b`` (no pairing of lanes with
+    weight rows)."""
+    rng = np.random.RandomState(5)
+    a = torch.from_numpy(rng.randn(3, 77, 384).astype(np.float32))
+    if weights == "shared":
+        b = torch.from_numpy(rng.randn(384, 256).astype(np.float32))
+        assert torch.equal(ref.lane_matmul(a, b), a @ b)
+        return
+    b = torch.from_numpy(rng.randn(3, 384, 256).astype(np.float32))
+    stack = ref.lane_matmul(a, b)
+    for i in range(3):
+        assert torch.equal(stack[i], a[i] @ b[i])
+        assert torch.equal(ref.lane_matmul(a[i:i + 1], b[i:i + 1])[0],
+                           stack[i])
+
+
 def _probe_arrays(seed, n=150, d=24, C=4, k=3):
     rng = np.random.RandomState(seed)
     x = rng.randn(n, d).astype(np.float32)
