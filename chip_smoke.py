@@ -15,8 +15,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    B in {1, 77, 128, 2000} plus a three-lane stack with a dead lane within
    1e-5 relative; both also at phase 9's new widths (VFedTrans's extractor
    5 -> 256 -> 15 and back, the K = 3 passives' g1 5 -> 128 -> 256 and
-   back, the K = 3 g2 640 -> 256 -> 256 and back) and at
-   SplitNN's two encoders with the final SELU; Eq. 5 (mse and mae, mask rows at 0 and 1) within 1e-5
+   back, the K = 3 g2 640 -> 256 -> 256 and back), at phase 10's (the
+   inversion attacker's MLP 256 -> 128 -> 25 with no final SELU, bcw's
+   passive g1 25 -> 128 -> 256 and back, the K = 4 g2 896 -> 256 -> 256
+   and back) and at SplitNN's two encoders with the final SELU; Eq. 5 (mse and mae, mask rows at 0 and 1) within 1e-5
    of max(|want|) where that lies below 1, else absolute (``_scalederr``):
    the forward's rows and mean forms, the backward for row cotangents, for
    the mean's cotangent, and with only the g3 step's gradients; the probe
@@ -111,10 +113,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
    kernels, and every run that trains g3 both Eq. 5 kernels; a
    ``comparison (...)`` line gives each method's wall time, metrics and
    bytes.
+10. experiments — the experiment driver, ``repro_torch.launch.experiment``:
+   (a) ``--smoke`` on the card and with ``--device cpu``: every record has
+   the reference's keys, rounds, bytes and epochs equal, each method held
+   as phase 9 holds its runs; (b) ``bcw_fig5.json``, ``kparty_fig7.json``,
+   ``serve_smoke.json`` and ``privacy_frontier.json`` as written (every
+   record an accuracy in [0, 1] or a finite leakage, the int8 exchange at
+   1 byte an element, ``serve_parity_max_abs`` <= 1e-4), both lane-MLP
+   kernels launched; (c) ``reduced_alignment_fig8.json`` cut only in
+   depth (seeds (0, 1), 2 epochs; the cut printed); (d) 2-seed groups of
+   ``apcvfl`` and ``apcvfl_dp`` (sigma 0.5) replicated against
+   sequential on the card, every epoch within TOL_LOSS, the dp lanes'
+   received latents the same bits; (e) ``train_encoder_with_probe`` at
+   mimic3's active features through g1_active's widths, 3 epochs, k 5,
+   card against CPU (losses within TOL_LOSS, probe metrics within 0.03),
+   and the same at g3's widths as a reading with the CPU's own spread.
+   An ``experiments (...)`` line gives each spec's wall time and runs.
 
 Launch counters are zeroed just before each run of a path (serve fp32,
 serve int8, train, probe, lm, each zamba prefill and the zamba decode,
-each card run of phase 9) and read just after; every kernel must have launched on its path.  The last
+each card run of phase 9, phase 10's spec files) and read just after; every kernel must have launched on its path.  The last
 lines are a ``details:`` line (every measurement as JSON), the ``kernels``
 JSON, the card's name and power limit, and ``{"ok": true, "device":
 ...}``.
@@ -197,7 +215,16 @@ COMPARISON_SHAPES = {"vfedtrans.enc": (5, 256, 15),
                      "g1_passive_k3.enc": (5, 128, 256),
                      "g1_passive_k3.dec": (256, 128, 5),
                      "g2_k3.enc": (640, 256, 256),
-                     "g2_k3.dec": (256, 256, 640)}
+                     "g2_k3.dec": (256, 256, 640),
+                     # phase 10's widths: the inversion attacker's MLP at
+                     # bcw (256 -> 128 -> 25 passive features, no final
+                     # SELU), bcw's passive g1 and the K = 4 g2
+                     # (128 + 3 x 256 = 896 inputs) of kparty_fig7.json
+                     "inverter.bcw": (256, 128, 25),
+                     "g1_passive.bcw.enc": (25, 128, 256),
+                     "g1_passive.bcw.dec": (256, 128, 25),
+                     "g2_k4.enc": (896, 256, 256),
+                     "g2_k4.dec": (256, 256, 896)}
 # SplitNN's two party encoders: the g1 widths with a final SELU
 SPLITNN_ENCODERS = {"splitnn.la": (5, 64, 128), "splitnn.lp": (10, 128, 256)}
 BATCHES = (16, 77, 256, 4096)
@@ -218,6 +245,28 @@ SCENARIO = dict(dataset="mimic3", active_features=5, aligned=10000,
 TRAIN = dict(epochs=2, requests=500)
 # phase 9: the K of the K-party runs and the seeds of the replica runs
 COMPARISON = dict(n_parties=3, seeds=(0, 1))
+# phase 10: the experiment driver.  (b) runs these spec files as written;
+# (c) runs EXPERIMENT_CUT's file cut only in depth (seeds and epochs)
+EXPERIMENT_SPECS = ("bcw_fig5.json", "kparty_fig7.json", "serve_smoke.json",
+                    "privacy_frontier.json")
+EXPERIMENT_CUT = dict(spec="reduced_alignment_fig8.json", seeds=(0, 1),
+                      max_epochs=2)
+# (d): 2-seed groups, replicated against sequential on the card, on the
+# privacy frontier's cell; (e): Appendix F's probe at mimic3's active
+# features through the active party's local encoder (g1_active's Table-3
+# widths), and a reading at g3's
+EXPERIMENT_GROUP = dict(dataset="bcw", aligned=150, seeds=(0, 1),
+                        max_epochs=8, sigma=0.5)
+EXPERIMENT_PROBE = dict(epochs=3, k=5, role="g1_active")
+TOL_SERVE_PARITY = 1e-4         # serve_smoke's serve_parity_max_abs
+# a classification record's keys, the reference's ``RunResult.to_record``
+# over ``classifier.f1_scores`` (tests/test_torch_experiments.py holds the
+# port's records to the live reference's key for key)
+RECORD_KEYS = ("method", "seed", "dataset", "n_aligned", "n_parties",
+               "n_active_features", "accuracy", "f1_micro", "f1_macro",
+               "f1_weighted", "f1_binary", "rounds", "comm_total_bytes",
+               "comm_uplink_bytes", "comm_downlink_bytes", "comm_mb",
+               "epochs_total", "z_dim")
 # run_apcvfl's training stages and the roles each one trains
 STAGES = {"g1": ("g1_active", "g1_passive"), "g2": ("g2",), "g3": ("g3",)}
 # attention vs plain per input dtype: |got - want| <= tol + tol * |want|,
@@ -2225,6 +2274,225 @@ def phase_comparison() -> dict:
     return res
 
 
+def _experiment_cli(argv: list) -> dict:
+    """``launch.experiment.main(argv)``; returns its payload (the
+    ``--out`` file), the ``RunResult``s behind the records and the wall
+    time on the host clock.  The results are read off the CLI's own
+    ``sweep`` call (losses are not in the tidy records)."""
+    import time
+    import torch
+    from repro_torch.launch import experiment
+    caught, sweep = [], experiment.sweep
+
+    def keep(*a, **kw):
+        caught.append(sweep(*a, **kw))
+        return caught[-1]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "results.json")
+        experiment.sweep = keep
+        try:
+            t0 = time.perf_counter()
+            rc = experiment.main([*argv, "--quiet", "--out", out])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            experiment.sweep = sweep
+        _require(rc == 0, (argv, rc))
+        with open(out) as fh:
+            payload = json.load(fh)
+    (results,) = caught
+    return {"payload": payload, "results": results, "wall_s": wall}
+
+
+def _check_records(what: str, records: list) -> None:
+    """Every record a probe's accuracy in [0, 1] or an attack's finite
+    leakage in [0, 1]."""
+    for r in records:
+        if "leakage" in r:
+            ok = np.isfinite(r["leakage"]) and 0.0 <= r["leakage"] <= 1.0
+        else:
+            ok = 0.0 <= r["accuracy"] <= 1.0
+        _require(ok, (what, r))
+
+
+def probe_g3_reading(probe_run) -> dict:
+    """Appendix F's probe at g3's widths (5 -> 256 -> 256 and back), read
+    and not held: the card against the CPU, and the CPU's own spread
+    between two orderings of the same math (the closed-form backward the
+    card's kernels compute, against autograd of the layer loop).  The two
+    move together (PERF.md, Findings), so TOL_LOSS cannot hold this fit."""
+    from repro_torch.core import autoencoder as ae
+    card, cpu = probe_run("g3", "cuda"), probe_run("g3", "cpu")
+    autograd = ae.recon_loss
+    ae.recon_loss = ae.make_recon_loss(True)
+    try:
+        closed = probe_run("g3", "cpu")
+    finally:
+        ae.recon_loss = autograd
+    loss = lambda r: {"g": r["history"]["loss"]}
+    return {"card_vs_cpu": _loss_rel_err(loss(card), loss(cpu))["g"],
+            "cpu_closed_form_vs_autograd":
+                _loss_rel_err(loss(closed), loss(cpu))["g"],
+            "card_vs_cpu_closed_form":
+                _loss_rel_err(loss(card), loss(closed))["g"]}
+
+
+def phase_experiments() -> dict:
+    """The experiment driver on the card (phase 10): (a) ``--smoke`` on
+    the card and on the CPU, held record for record; (b) four spec files
+    as written, under the launch counters; (c) the fig. 8 spec cut in
+    seeds and epochs; (d) 2-seed groups of ``apcvfl`` and ``apcvfl_dp``
+    replicated against sequential on the card; (e) Appendix F's
+    ``train_encoder_with_probe`` on the card against the CPU."""
+    import dataclasses
+    import time
+    import torch
+    from repro_torch.core import autoencoder as ae
+    from repro_torch.core import pipeline
+    from repro_torch.experiments import ExperimentSpec, MethodSpec, sweep
+    from repro_torch.kernels import ops
+    log("=== phase 10: the experiment driver ===")
+    specs_dir = os.path.join(ROOT, "examples", "specs")
+    res = {}
+
+    # (a) the smoke spec on the card and on the CPU
+    card, cpu = (_experiment_cli(["--smoke", "--device", dev])
+                 for dev in ("cuda", "cpu"))
+    smoke = {"wall_s": card["wall_s"], "cpu_wall_s": cpu["wall_s"],
+             "runs": len(card["payload"]["records"]), "held": {}}
+    for rc, rp, r_card, r_cpu in zip(card["payload"]["records"],
+                                     cpu["payload"]["records"],
+                                     card["results"], cpu["results"]):
+        name = rc["method"]
+        _require(tuple(rc) == RECORD_KEYS and tuple(rp) == RECORD_KEYS,
+                 (name, list(rc), list(rp)))
+        for k in ("rounds", "comm_mb", "comm_total_bytes",
+                  "comm_uplink_bytes", "comm_downlink_bytes",
+                  "epochs_total", "z_dim"):
+            _require(rc[k] == rp[k], (name, k, rc[k], rp[k]))
+        smoke["held"][name] = _held(_summary(r_card), _summary(r_cpu),
+                                    f"smoke {name}")
+    res["smoke"] = smoke
+
+    # (b) four spec files as written, under the launch counters
+    ops.reset_launches()
+    runs = {}
+    for fname in EXPERIMENT_SPECS:
+        before = dict(ops.LAUNCHES)
+        out = _experiment_cli([os.path.join(specs_dir, fname),
+                               "--device", "cuda"])
+        records = out["payload"]["records"]
+        _check_records(fname, records)
+        runs[fname] = {
+            "wall_s": out["wall_s"], "runs": len(records),
+            "launches": {k: v - before[k] for k, v in ops.LAUNCHES.items()}}
+        for r in records:
+            if r["method"] == "apcvfl-int8":        # 1 byte an element
+                want = r["n_aligned"] * 256 + 256 * 4
+                _require(r["exchange_bytes"] == want, (r, want))
+                runs[fname]["int8_exchange_bytes"] = r["exchange_bytes"]
+            if "serve_parity_max_abs" in r:
+                _require(r["serve_parity_max_abs"] <= TOL_SERVE_PARITY, r)
+                runs[fname]["serve_parity_max_abs"] = \
+                    r["serve_parity_max_abs"]
+        log(f"{fname}: {len(records)} runs in {out['wall_s']:.1f} s, "
+            f"launches {runs[fname]['launches']}")
+    launches = dict(ops.LAUNCHES)
+    _require(launches["lane_mlp_fwd"] > 0 and launches["lane_mlp_bwd"] > 0,
+             ("the lane-MLP kernels never ran in phase 10 (b)", launches))
+    _require(any("int8_exchange_bytes" in r for r in runs.values())
+             and any("serve_parity_max_abs" in r for r in runs.values()),
+             runs)
+    res["specs"], res["launches"] = runs, launches
+
+    # (c) the fig. 8 spec, cut only in depth
+    with open(os.path.join(specs_dir, EXPERIMENT_CUT["spec"])) as fh:
+        full = ExperimentSpec.from_json(fh.read())
+    cut = dataclasses.replace(
+        full, seeds=EXPERIMENT_CUT["seeds"],
+        overrides={**full.overrides,
+                   "max_epochs": EXPERIMENT_CUT["max_epochs"]})
+    cut_note = (f"{EXPERIMENT_CUT['spec']} cut in depth only: seeds "
+                f"{list(full.seeds)} -> {list(cut.seeds)}, max_epochs "
+                f"{full.overrides.get('max_epochs')} -> "
+                f"{EXPERIMENT_CUT['max_epochs']}; aligned "
+                f"{list(cut.aligned)}, methods and dataset as written")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cut.json")
+        with open(path, "w") as fh:
+            fh.write(cut.to_json())
+        out = _experiment_cli([path, "--device", "cuda"])
+    _check_records("fig8 cut", out["payload"]["records"])
+    res["fig8_cut"] = {"wall_s": out["wall_s"],
+                       "runs": len(out["payload"]["records"]),
+                       "cut": cut_note}
+    log(f"{cut_note}: {res['fig8_cut']['runs']} runs in "
+        f"{out['wall_s']:.1f} s")
+
+    # (d) seed groups: replicated against sequential, on the card
+    g = EXPERIMENT_GROUP
+    group = ExperimentSpec(
+        name="seed-groups", dataset=g["dataset"], aligned=(g["aligned"],),
+        seeds=g["seeds"],
+        methods=(MethodSpec("apcvfl"),
+                 MethodSpec("apcvfl_dp", params={"sigma": g["sigma"]})),
+        overrides={"max_epochs": g["max_epochs"]})
+    t0 = time.perf_counter()
+    rep = sweep(group, device="cuda")
+    rep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seq = sweep(dataclasses.replace(group, replicate=False), device="cuda")
+    seq_s = time.perf_counter() - t0
+    held = []
+    for r, q in zip(rep, seq):
+        held.append(_held(_summary(r), _summary(q),
+                          f"group {r.method} seed {r.seed} replicated vs "
+                          f"sequential", last={}))
+        if r.method == "apcvfl_dp":
+            _require(torch.equal(r.artifacts["z_passive_aligned"],
+                                 q.artifacts["z_passive_aligned"]),
+                     f"seed {r.seed}: the replicated dp lane received "
+                     f"other latents than its sequential run")
+    res["groups"] = {"replicated_wall_s": rep_s, "sequential_wall_s": seq_s,
+                     "held": held}
+
+    # (e) Appendix F on the card and on the CPU, at the active party's
+    # local encoder (g1_active's Table-3 widths) and, as a reading, at g3's
+    sc = _scenario()
+    x, y = sc.active.x, sc.active.y
+
+    def probe_run(role, dev):
+        t0 = time.perf_counter()
+        out = pipeline.train_encoder_with_probe(
+            x, y, sc.n_classes, ae.table3_encoder(role, x.shape[1]),
+            max_epochs=EXPERIMENT_PROBE["epochs"], k=EXPERIMENT_PROBE["k"],
+            device=dev)
+        out["wall_s"] = time.perf_counter() - t0
+        return out
+
+    probe = {dev: probe_run(EXPERIMENT_PROBE["role"], dev)
+             for dev in ("cuda", "cpu")}
+    loss_err = _loss_rel_err({"g": probe["cuda"]["history"]["loss"]},
+                             {"g": probe["cpu"]["history"]["loss"]})
+    _require(_losses_agree(loss_err, {}), ("probe losses", loss_err))
+    probe_gap = [abs(a - b) for a, b in zip(probe["cuda"]["history"]["probe"],
+                                            probe["cpu"]["history"]["probe"])]
+    probe_gap.append(abs(probe["cuda"]["metric_raw_x"]
+                         - probe["cpu"]["metric_raw_x"]))
+    _require(len(probe_gap) == EXPERIMENT_PROBE["epochs"] + 1
+             and max(probe_gap) < TOL_METRIC, ("probe metrics", probe_gap))
+    res["probe"] = {"role": EXPERIMENT_PROBE["role"],
+                    "loss_rel_err": loss_err["g"], "metric_gap": probe_gap,
+                    "wall_s": {d: probe[d]["wall_s"] for d in probe},
+                    "gap": {d: probe[d]["gap"] for d in probe},
+                    "g3_widths": probe_g3_reading(probe_run)}
+    log(f"train_encoder_with_probe ({EXPERIMENT_PROBE['role']} widths) card "
+        f"vs cpu: loss rel err {loss_err['g']}, probe gap {probe_gap}; at "
+        f"g3's widths {res['probe']['g3_widths']}")
+    return res
+
+
 def _smi() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -2284,6 +2552,8 @@ def main(argv=None) -> int:
     done("zamba")
     comparison = phase_comparison()
     done("comparison")
+    experiments = phase_experiments()
+    done("experiments")
 
     csrc = "src/repro_torch/kernels/csrc/"
     srcs = {"lane_mlp_fwd": ("lane_mlp_fwd.cu", "lane_mlp.py:57"),
@@ -2302,7 +2572,8 @@ def main(argv=None) -> int:
         t = timing[name]
         launches = (serve["launches"][name] + train["launches"][name]
                     + lm["launches"][name] + zamba["launches"][name]
-                    + comparison["launches"][name])
+                    + comparison["launches"][name]
+                    + experiments["launches"][name])
         _require(launches > 0, f"{name} never launched on its path")
         kernels.append({
             "name": name, "route": "cuda", "source": csrc + srcs[name][0],
@@ -2339,11 +2610,28 @@ def main(argv=None) -> int:
         f"{TRAIN['epochs']} epochs a stage; wall s on the host clock): "
         + json.dumps({name: {"wall_s": r["wall_s"], **r["summary"]}
                       for name, r in comparison.items() if "summary" in r}))
+    log("experiments (wall s on the host clock, runs): " + json.dumps(
+        {"smoke card": [experiments["smoke"]["wall_s"],
+                        experiments["smoke"]["runs"]],
+         "smoke cpu": [experiments["smoke"]["cpu_wall_s"],
+                       experiments["smoke"]["runs"]]}
+        | {f: [r["wall_s"], r["runs"]]
+           for f, r in experiments["specs"].items()}
+        | {"fig8 cut": [experiments["fig8_cut"]["wall_s"],
+                        experiments["fig8_cut"]["runs"]],
+           "groups replicated": [experiments["groups"]["replicated_wall_s"],
+                                 4],
+           "groups sequential": [experiments["groups"]["sequential_wall_s"],
+                                 4],
+           "probe card": [experiments["probe"]["wall_s"]["cuda"], 1],
+           "probe cpu": [experiments["probe"]["wall_s"]["cpu"], 1]})
+        + f"; {experiments['fig8_cut']['cut']}")
     log("details: " + json.dumps({"timing": timing, "serve": serve,
                                   "train": train, "train_time": train_time,
                                   "turns": turns, "g3_limit": limit,
                                   "lm": lm, "zamba": zamba,
                                   "comparison": comparison,
+                                  "experiments": experiments,
                                   "elapsed_s": elapsed,
                                   "wrappers": wrappers,
                                   "torch": torch.__version__,

@@ -105,16 +105,46 @@ class Channel:
 
 def exchange_array(channel: Channel, what: str, z, *, transform=None,
                    seed: int = 0, link: int = 0, direction: str = UPLINK):
-    """THE one-shot latent exchange: the paper's plain fp32 send.  The
-    array is byte-accounted as-is and the receiver gets exactly what the
-    sender encoded.  Hardened exchanges (``transform``: DP noise,
-    quantization) come with the robustness slice of the port."""
-    if transform is not None:
-        raise NotImplementedError(
-            "exchange transforms (repro.robustness.defense) are not ported "
-            "yet: they land with the port's robustness slice")
-    channel.send_array(what, z, direction=direction)
-    return z
+    """THE one-shot latent exchange, with an optional hardening hook.
+
+    ``transform=None`` is the paper's plain fp32 send: the array is
+    byte-accounted as-is and the receiver gets exactly what the sender
+    encoded.  A ``transform`` (an ``ExchangeTransform`` from
+    ``repro_torch.robustness.defense`` or a training-time fault from
+    ``robustness.faults``: anything with an ``exchange`` method) instead
+    perturbs or quantizes the payload at the sender, accounts the
+    TRANSFORMED wire bytes (per dtype), and returns the fp32 array the
+    receiver reconstructs, on ``z``'s device; the active party must only
+    ever consume this return value.  ``seed``/``link`` key the
+    transform's randomness per run and per passive link."""
+    if transform is None:
+        channel.send_array(what, z, direction=direction)
+        return z
+    return transform.exchange(channel, what, z, seed=seed, link=link,
+                              direction=direction)
+
+
+def normalize_exchange(transform, n: int) -> list:
+    """Replica contract for the ``*_replicated`` entry points: one
+    transform shared by every replica, or exactly one per replica
+    (entries may be ``None``: a mixed-defense lane grid).  Anything else
+    is refused here, before any training runs."""
+    if transform is None or hasattr(transform, "exchange"):
+        return [transform] * n
+    try:
+        out = list(transform)
+    except TypeError:
+        raise TypeError(f"exchange: {transform!r} is neither a transform "
+                        f"(an object with an 'exchange' method) nor a "
+                        f"sequence of them") from None
+    if len(out) != n:
+        raise ValueError(f"normalize_exchange: {len(out)} exchange "
+                         f"transforms for {n} replicas")
+    bad = [t for t in out if t is not None and not hasattr(t, "exchange")]
+    if bad:
+        raise TypeError(f"exchange: {bad[0]!r} is not a transform (an "
+                        f"object with an 'exchange' method)")
+    return out
 
 
 def summarize(channels: Iterable[Channel]) -> dict:

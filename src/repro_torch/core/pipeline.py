@@ -9,7 +9,7 @@ Step 3  knowledge distillation          (active, student AE g3 on the FULL
         active dataset, Eq. 5 masked loss)
 Step 4  classifier on Z = g3(X_active), labels from the active party.
 
-The four steps are ``core.multiparty.run_protocol``, of which the
+The four steps are ``core.protocol.run_protocol``, of which the
 2-party protocol is the case of one passive party.  Every stage trains on
 ``core.training``: the two g1 autoencoders as two lanes of one
 ``train_lanes`` call (two shape groups), g2 as a singleton lane, g3
@@ -19,7 +19,9 @@ distill kernels; on a CUDA device the autoencoders run through the
 lane-MLP kernels either way.  Stage handoffs stay on the device; the
 channel accounting reads only shapes and dtypes.  ``ablation=True``
 skips steps 1-2 and trains g3 without the distillation term (the paper's
-"Ablation" curves).
+"Ablation" curves).  ``exchange`` hardens the single latent exchange
+(``repro_torch.robustness.defense``: DP noise, quantization): g2, g3 and
+the serving artifacts consume the RECEIVED latents.
 
 ``run_apcvfl_replicated`` runs S seed replicates through every stage
 together: the g1s of all seeds as 2S lanes of one ``train_lanes`` call
@@ -28,7 +30,8 @@ together: the g1s of all seeds as 2S lanes of one ``train_lanes`` call
 rows kernel under autograd); each lane draws the inits and the lane
 seeds of ``run_apcvfl`` at its seed, so it matches the sequential run.
 ``run_apcvfl_aligned_only_replicated`` does the same for the aligned-only
-adaptation.
+adaptation.  ``train_encoder_with_probe`` is Appendix F's Algorithm 1:
+an encoder's per-epoch k-fold probe.
 
 Initial params come from one ``torch.Generator`` seeded with ``seed``
 (g1_active, g1_passive, g2, g3, in that order, all four drawn whichever
@@ -45,12 +48,12 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import convert, resolve_device
 from repro_torch.configs.apcvfl_paper import TABULAR as HP
 from repro_torch.core import autoencoder as ae
 from repro_torch.core import classifier as clf
 from repro_torch.core import comm
-from repro_torch.core import multiparty as mp
+from repro_torch.core import protocol
 from repro_torch.core import training
 from repro_torch.core.psi import psi
 from repro_torch.data.vertical import VFLScenario
@@ -70,17 +73,17 @@ def run_apcvfl(sc: VFLScenario, *, lam: float = HP.lam, kind: str = HP.kind,
     """Full protocol on ``device``.  ``ablation=True`` trains g3 WITHOUT
     the distillation term (the paper's 'Ablation' curves: an all-zero
     teacher and mask, no exchange, ``rounds == 0``, params of g3 only, no
-    artifacts).  ``exchange`` transforms (DP noise, quantization) are not
-    ported yet and raise.  The result's ``steps`` holds each role's Adam
-    steps and ``seconds`` each stage's wall time."""
-    mp.refuse_unported("run_apcvfl", exchange=exchange)
-    (res,) = mp.run_protocol(
+    artifacts).  ``exchange`` is an ``ExchangeTransform``
+    (``repro_torch.robustness.defense``) applied at the sender; ``None`` is
+    the paper's plain fp32 exchange.  The result's ``steps`` holds each
+    role's Adam steps and ``seconds`` each stage's wall time."""
+    (res,) = protocol.run_protocol(
         [sc], [int(seed)], k_party=False, lanes_g3=False, lam=lam,
         kind=kind, use_kernel=use_kernel, ablation=ablation,
         init_params=None if init_params is None else [init_params],
         train_kw=dict(batch_size=batch_size, max_epochs=max_epochs,
                       patience=patience, lr=lr, perm_fn=perm_fn),
-        dev=resolve_device(device))
+        dev=resolve_device(device), exchange=exchange)
     return res
 
 
@@ -102,20 +105,22 @@ def run_apcvfl_replicated(scenarios, *, seeds, lam: float = HP.lam,
     equal-shape scenario per seed.  Returns one ``RunResult`` per seed,
     each matching ``run_apcvfl(scenarios[i], seed=seeds[i], ...)`` within
     float tolerance: each lane draws that run's inits (or takes
-    ``init_params[i]``) and its lane seeds.  ``mesh`` and ``exchange``
-    are not ported yet and raise."""
-    mp.refuse_unported("run_apcvfl_replicated", exchange=exchange,
-                       mesh=mesh)
-    scs, seeds = mp.normalize_replicas("run_apcvfl_replicated", scenarios,
-                                       seeds)
+    ``init_params[i]``) and its lane seeds.  ``exchange`` is one transform
+    shared by every replica (each replica's noise keyed by its seed, so a
+    lane receives its sequential run's latents) or one per replica,
+    entries may be None (a defense grid as lanes, ``defense.dp_frontier``).
+    ``mesh`` is not ported yet and raises."""
+    protocol.refuse_unported("run_apcvfl_replicated", mesh=mesh)
+    scs, seeds = protocol.normalize_replicas("run_apcvfl_replicated",
+                                             scenarios, seeds)
     if not seeds:
         return []
-    return mp.run_protocol(
+    return protocol.run_protocol(
         scs, seeds, k_party=False, lanes_g3=True, lam=lam, kind=kind,
         use_kernel=use_kernel, ablation=ablation, init_params=init_params,
         train_kw=dict(batch_size=batch_size, max_epochs=max_epochs,
                       patience=patience, lr=lr, perm_fn=perm_fn),
-        dev=resolve_device(device))
+        dev=resolve_device(device), exchange=exchange)
 
 
 def run_local_baseline(sc, seed: int = 0, *, device="cuda") -> dict:
@@ -167,13 +172,14 @@ def run_apcvfl_aligned_only_replicated(
     ``run_apcvfl_replicated``.  With one seed this is
     ``run_apcvfl_aligned_only``: the reference runs its g1s and its g2 as
     lanes there too."""
-    mp.refuse_unported("run_apcvfl_aligned_only_replicated", mesh=mesh)
-    scs, seeds = mp.normalize_replicas(
+    protocol.refuse_unported("run_apcvfl_aligned_only_replicated",
+                             mesh=mesh)
+    scs, seeds = protocol.normalize_replicas(
         "run_apcvfl_aligned_only_replicated", scenarios, seeds)
     if not seeds:
         return []
     dev = resolve_device(device)
-    inits = [mp.inits(sc, s, None if init_params is None
+    inits = [protocol.inits(sc, s, None if init_params is None
                       else init_params[i], ROLES[:3], ROLES[1:2], dev)
              for i, (sc, s) in enumerate(zip(scs, seeds))]
     train_kw = dict(batch_size=batch_size, max_epochs=max_epochs,
@@ -182,8 +188,8 @@ def run_apcvfl_aligned_only_replicated(
     cells = []                        # (xa, xp, y) aligned rows per seed
     for sc, ch in zip(scs, channels):
         _, idx_a, idx_p = psi(sc.active.ids, sc.passive.ids, channel=ch)
-        cells.append((mp.rows(sc.active.x[idx_a], dev),
-                      mp.rows(sc.passive.x[idx_p], dev),
+        cells.append((protocol.rows(sc.active.x[idx_a], dev),
+                      protocol.rows(sc.passive.x[idx_p], dev),
                       np.asarray(sc.active.y[idx_a])))
 
     with torch.no_grad():
@@ -219,3 +225,44 @@ def run_apcvfl_aligned_only_replicated(
                         "g1_passive": rp.train_loss, "g2": r2.train_loss},
             params={"g2": r2.params}, channels=(ch,)))
     return results
+
+
+# ---------------------------------------------------------------------------
+# Appendix F, Algorithm 1: encoder training with representation-quality probe
+# ---------------------------------------------------------------------------
+
+def train_encoder_with_probe(x: np.ndarray, y: np.ndarray, n_classes: int,
+                             widths: list, *, metric: str = "accuracy",
+                             k: int = 5, max_epochs: int = 30,
+                             seed: int = 0,
+                             init_params: Optional[dict] = None,
+                             perm_fn: Optional[Callable] = None,
+                             device="cuda") -> dict:
+    """Runs Algorithm 1 on ``device``: per epoch, the k-fold CV probe on
+    Z = g(X).  Returns the loss curve, per-epoch metric sets M~, the raw-X
+    metric set M, and the equivalence gap (Eq. 12).  The autoencoder's
+    init is drawn from a generator seeded with ``seed`` or taken from
+    ``init_params`` as arrays; ``perm_fn`` replaces the epoch
+    permutations."""
+    dev = resolve_device(device)
+    params = (ae.init_autoencoder(torch.Generator().manual_seed(seed),
+                                  widths, device=dev)
+              if init_params is None
+              else convert.to_torch(init_params, device=dev))
+    xt = protocol.rows(x, dev)
+    history = {"loss": [], "probe": []}
+
+    def cb(epoch, p, tl, vl):
+        with torch.no_grad():
+            z = ae.fused_encode(p, xt)
+        m = clf.kfold_cv(z, y, n_classes, k=k, seed=seed, device=dev)
+        history["probe"].append(m[metric])
+        history["loss"].append(tl)
+
+    training.train(params, {"x": xt}, ae.recon_loss, max_epochs=max_epochs,
+                   patience=max_epochs, seed=seed, perm_fn=perm_fn,
+                   epoch_callback=cb)
+    base = clf.kfold_cv(xt, y, n_classes, k=k, seed=seed,
+                        device=dev)[metric]
+    gap = base - (history["probe"][-1] if history["probe"] else 0.0)
+    return {"history": history, "metric_raw_x": base, "gap": gap}

@@ -118,11 +118,14 @@ def _n_train(data: dict, val_frac: float) -> int:
 
 
 def _fit(params, tr, val, loss_fn, *, lanes: Optional[int], nb, bs: int,
-         batch_idx: Callable, max_epochs: int, patience: int, lr: float):
+         batch_idx: Callable, max_epochs: int, patience: int, lr: float,
+         epoch_callback: Optional[Callable] = None):
     """The epoch loop shared by ``train`` (``lanes=None``: one unstacked
     instance) and each shape group of ``train_lanes`` (params, data and
     losses carry a lane axis of ``lanes``).  ``batch_idx(epoch)`` gives
     the epoch's row indices, (n_batches, bs) or (L, n_batches, bs).
+    ``epoch_callback(epoch, params, tl, vl)`` (single fits only) gets the
+    epoch's params and its two losses, already on the host.
     Returns the best-val params and, per lane, the epochs run and the
     loss histories."""
     dev = _device(params)
@@ -193,6 +196,11 @@ def _fit(params, tr, val, loss_fn, *, lanes: Optional[int], nb, bs: int,
                 tl_hist[j].append(float(host[0, j]))
                 vl_hist[j].append(float(host[1, j]))
             epochs += live
+            if epoch_callback is not None:
+                # each Adam step makes new tensors, so the callback's
+                # params are never stepped onward under it
+                epoch_callback(epoch, params, tl_hist[0][-1],
+                               vl_hist[0][-1])
             if improved.any():
                 best_v = torch.where(improved_t, vl, best_v)
                 best_p = freeze(improved, params, best_p) if lanes \
@@ -210,10 +218,15 @@ def _fit(params, tr, val, loss_fn, *, lanes: Optional[int], nb, bs: int,
 def train(params, data: dict, loss_fn: Callable, *, batch_size: int = 128,
           max_epochs: int = 200, patience: int = 10, lr: float = 1e-3,
           val_frac: float = 0.1, seed: int = 0,
-          perm_fn: Optional[Callable] = None) -> TrainResult:
+          perm_fn: Optional[Callable] = None,
+          epoch_callback: Optional[Callable] = None) -> TrainResult:
     """data: dict of equal-length, row-aligned arrays or tensors;
     ``loss_fn(params, batch)`` returns a scalar.  Trains on the device of
-    ``params``; ``perm_fn(seed, epoch, n)`` overrides ``default_perm``."""
+    ``params``; ``perm_fn(seed, epoch, n)`` overrides ``default_perm``.
+    ``epoch_callback(epoch, params, tl, vl)`` runs after every epoch with
+    that epoch's params and its train and val losses as floats
+    (the reference routes such fits to its per-epoch loop; here every fit
+    syncs once an epoch, so the losses are on the host already)."""
     dev = _device(params)
     tr, val, n_tr = _split(data, seed, val_frac, dev)
     bs = max(min(batch_size, n_tr), 1)
@@ -228,7 +241,7 @@ def train(params, data: dict, loss_fn: Callable, *, batch_size: int = 128,
     best, epochs, tls, vls = _fit(params, tr, val, loss_fn, lanes=None,
                                   nb=n_batches, bs=bs, batch_idx=batch_idx,
                                   max_epochs=max_epochs, patience=patience,
-                                  lr=lr)
+                                  lr=lr, epoch_callback=epoch_callback)
     e = int(epochs[0])
     return TrainResult(best, e, e * n_batches, tls[0], vls[0])
 

@@ -27,7 +27,7 @@ from repro.data.vertical import make_scenario
 from repro_torch import convert
 from repro_torch.core import comm as tcomm
 from repro_torch.core import fedsvd as tfedsvd
-from repro_torch.core import multiparty as tmp
+from repro_torch.core import protocol as tprotocol
 from repro_torch.core import pipeline as tpipe
 from repro_torch.core import splitnn as tsplitnn
 from repro_torch.core import training as ttraining
@@ -227,8 +227,8 @@ def test_ablation_g3_starts_where_the_full_run_g3_starts(scenario):
     generator and keeps g3's, so its g3 starts where the full run's g3
     starts (as the reference's k4 is the fourth key either way)."""
     roles = ["g1_active", "g1_passive", "g2", "g3"]
-    full = tmp.inits(scenario, 7, None, roles, roles[1:2], "cpu")
-    abl = tmp.inits(scenario, 7, None, ["g3"], roles[1:2], "cpu")
+    full = tprotocol.inits(scenario, 7, None, roles, roles[1:2], "cpu")
+    abl = tprotocol.inits(scenario, 7, None, ["g3"], roles[1:2], "cpu")
     assert set(abl) == {"g3"}
     for a, b in zip(tree_leaves(abl["g3"]), tree_leaves(full["g3"])):
         assert torch.equal(a, b)

@@ -1293,12 +1293,16 @@ def test_comparison_mlps_through_autograd_on_card(name):
     """``ops.fused_mlp2`` / ``lane_mlp2`` as the comparison's runs call
     them, at B 128: output and every gradient (with and without dx) on
     the card within 1e-5 relative of the CPU's plain path."""
+    _mlp_card_vs_cpu(name, *COMPARISON_MLPS[name], B=128)
+
+
+def _mlp_card_vs_cpu(name, widths, L, fa, B):
     dev = _card()
-    (din, h, dz), L, fa = COMPARISON_MLPS[name]
+    din, h, dz = widths
     fn = ops.fused_mlp2 if L is None else ops.lane_mlp2
     lanes = () if L is None else (L,)
-    arrs = _mlp(din + dz, 128, din, h, dz, torch.device("cpu"), lanes=lanes)
-    g = _randn(np.random.RandomState(dz), *lanes, 128, dz)
+    arrs = _mlp(din + dz, B, din, h, dz, torch.device("cpu"), lanes=lanes)
+    g = _randn(np.random.RandomState(dz), *lanes, B, dz)
     for need_dx in (False, True):
         runs = []
         for d in (dev, torch.device("cpu")):
@@ -1312,6 +1316,19 @@ def test_comparison_mlps_through_autograd_on_card(name):
         assert len(got) == 5 + need_dx
         for i, (a, b) in enumerate(zip(got, want)):
             assert _relerr(a, b) <= 1e-5, (name, need_dx, i)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_x", [25, 10], ids=["bcw", "mimic3"])
+@pytest.mark.parametrize("B", [16, 128])
+def test_inverter_mlp_through_autograd_on_card(d_x, B):
+    """The inversion attacker's MLP (``core.privacy``, 256 -> 128 -> the
+    passive party's features, no final SELU) through ``fused_mlp2`` as its
+    training calls it: at the batch of a 64-pair budget (16) and at 128,
+    output and every gradient on the card within 1e-5 relative of the
+    CPU's plain path."""
+    _mlp_card_vs_cpu(f"inverter d_x {d_x}", (256, 128, d_x), None, False,
+                     B=B)
 
 
 @pytest.mark.gpu

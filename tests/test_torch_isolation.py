@@ -63,7 +63,12 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
                 "serve.decode", "serve.engine", "launch.serve",
                 "configs.zamba2_2_7b", "kernels.ssd_chunk", "models.mamba2",
                 "models.hybrid", "core.splitnn", "core.fedsvd",
-                "core.vfedtrans", "core.multiparty"):
+                "core.vfedtrans", "core.multiparty",
+                "experiments.specs", "experiments.registry",
+                "experiments.methods", "experiments.sweeps",
+                "launch.experiment", "core.protocol", "core.privacy",
+                "robustness.defense", "robustness.attacks",
+                "robustness.faults"):
         assert f"repro_torch.{mod}" in r.stdout.split(), mod
 
 
@@ -89,7 +94,9 @@ def test_engine_without_device_raises_on_host_without_card():
 def test_entry_points_default_to_cuda():
     from repro_torch import convert
     from repro_torch.core import (autoencoder, classifier, multiparty,
-                                  pipeline, splitnn, vfedtrans)
+                                  pipeline, privacy, splitnn, vfedtrans)
+    from repro_torch.experiments import sweeps
+    from repro_torch.robustness import attacks, defense, faults
     from repro_torch.serve import quant, vfl
     for fn in (vfl.VFLServingEngine.__init__, vfl.RepresentationCache,
                autoencoder.init_mlp, autoencoder.init_autoencoder,
@@ -101,15 +108,18 @@ def test_entry_points_default_to_cuda():
                classifier.init_logreg, classifier.kfold_cv,
                classifier.kfold_cv_many, splitnn.init_splitnn,
                splitnn.run_splitnn, vfedtrans.run_vfedtrans,
-               multiparty.run_apcvfl_k, multiparty.run_apcvfl_k_replicated):
+               multiparty.run_apcvfl_k, multiparty.run_apcvfl_k_replicated,
+               pipeline.train_encoder_with_probe, privacy.run_inversion,
+               sweeps.sweep, defense.run_apcvfl_dp, attacks.build_surfaces,
+               faults.run_faulted_apcvfl):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
-    from repro_torch.launch import serve, serve_vfl
+    from repro_torch.launch import experiment, serve, serve_vfl
     from repro_torch.serve import engine
     from repro_torch.sharding import policy
     for fn in (engine.Engine.__init__, policy.init_params,
                serve.build_params):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
-    for cli in (serve_vfl.main, serve.main):
+    for cli in (serve_vfl.main, serve.main, experiment.main):
         assert "default=\"cuda\"" in inspect.getsource(cli)
 
 

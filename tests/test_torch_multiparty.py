@@ -164,7 +164,9 @@ def test_run_apcvfl_k_matches_reference(scenario_k3, reference_k3,
 
 
 def test_run_apcvfl_k_refuses_exchange(scenario_k3):
-    with pytest.raises(NotImplementedError, match="item 6"):
+    """Transforms are ported (``tests/test_torch_robustness.py``); what is
+    refused, before any training, is an exchange that is not one."""
+    with pytest.raises(TypeError, match="exchange"):
         tmp.run_apcvfl_k(scenario_k3, exchange=object(), device="cpu")
 
 

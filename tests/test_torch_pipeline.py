@@ -135,7 +135,9 @@ def test_export_bundle_matches_reference(scenario, port_runs):
 
 
 def test_run_apcvfl_refuses_exchange_transforms(scenario):
-    with pytest.raises(NotImplementedError, match="exchange"):
+    """Transforms are ported (``tests/test_torch_robustness.py``); what is
+    refused, before any training, is an exchange that is not one."""
+    with pytest.raises(TypeError, match="exchange"):
         tpipe.run_apcvfl(scenario, exchange=object(), device="cpu")
 
 

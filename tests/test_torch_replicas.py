@@ -214,9 +214,8 @@ def test_replicated_entry_points_refuse(request, name, bad):
     elif bad == "mesh":
         with pytest.raises(NotImplementedError, match="item 10"):
             fn(scs, seeds=SEEDS, mesh=object(), device="cpu")
-    elif name == "run_apcvfl_aligned_only_replicated":
-        with pytest.raises(TypeError, match="exchange"):  # as the reference
-            fn(scs, seeds=SEEDS, exchange=object(), device="cpu")
     else:
-        with pytest.raises(NotImplementedError, match="item 6"):
+        # the aligned-only runner takes no exchange, as the reference's;
+        # the others refuse one that is not a transform before training
+        with pytest.raises(TypeError, match="exchange"):
             fn(scs, seeds=SEEDS, exchange=object(), device="cpu")

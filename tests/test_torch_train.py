@@ -117,6 +117,35 @@ def test_train_early_stops_and_returns_best_params():
     _assert_fit_equal(got, want)
 
 
+
+def test_train_epoch_callback_matches_reference_epochwise_loop():
+    """``epoch_callback`` (Appendix F's hook): the reference routes such a
+    fit to its per-epoch loop; the port calls back from its one loop.
+    Each epoch's params and losses agree within 1e-5 relative; params
+    kept by the callback are not stepped onward by later epochs."""
+    x = np.random.RandomState(5).randn(90, 5).astype(np.float32)
+    p = jae.init_autoencoder(jax.random.PRNGKey(5), [5, 8, 4])
+    kw = dict(batch_size=16, max_epochs=6, patience=2, lr=3e-2, seed=5)
+    seen = {"jax": [], "torch": []}
+
+    def cb(which):
+        return lambda epoch, params, tl, vl: seen[which].append(
+            (epoch, params, tl, vl))
+
+    want = jtraining.train(p, {"x": x}, jae.recon_loss,
+                           epoch_callback=cb("jax"), **kw)
+    got = ttraining.train(_t(p), {"x": x}, tae.recon_loss, perm_fn=jax_perm,
+                          epoch_callback=cb("torch"), **kw)
+    _assert_fit_equal(got, want)
+    assert [e for e, *_ in seen["torch"]] == list(range(got.epochs_run))
+    assert len(seen["torch"]) == len(seen["jax"])
+    for (_, tp, ttl, tvl), (_, jp, jtl, jvl) in zip(seen["torch"],
+                                                     seen["jax"]):
+        assert isinstance(ttl, float) and isinstance(tvl, float)
+        np.testing.assert_allclose([ttl, tvl], [jtl, jvl], rtol=REL)
+        _assert_params_close(tp, jp)
+
+
 def _lane(n, d, seed, widths, x=None):
     if x is None:
         x = np.random.RandomState(seed).randn(n, d).astype(np.float32)
