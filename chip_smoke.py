@@ -130,9 +130,41 @@ Phases, in order; any failure ends the run with a non-zero exit:
    and the same at g3's widths as a reading with the CPU's own spread.
    An ``experiments (...)`` line gives each spec's wall time and runs.
 
+11. runtime — the live multi-tenant runtime (``serve/runtime.py``) on
+   phase 3's bundle, tenants ``fp32`` and ``int8`` in one
+   ``TenantRegistry``: (a) a Poisson stream of 2,000 requests a tenant
+   (1-64 rows, half the ids known) at 300 req/s and a bursty one (4x the
+   rate ON for 200 ms, a quarter OFF), SLO 100 ms, measured service
+   times; rows/s, queue and service p50/p99, SLO attainment, shed rate,
+   dispatches and mean batch rows per tenant; (b) ``verify_dispatch_
+   parity``: every micro-batch bit-identical to a solo engine's on the
+   card; (c) under a fixed service model, the card and the CPU give the
+   same dispatch log (tenant, time, members) and shed set (an admission
+   bound of 1,024 rows sheds part of the bursty stream), logits within
+   TOL_ENGINE; (d) ``examples/faults/passive_dropout.json`` through
+   ``serve_vfl.main --arrival poisson --fault``: 2 events applied, no
+   collaborative dispatch while faulted, cache version 2, collaborative
+   dispatches after the recovery.
+12. lm_train — LM training (``train/loop.py``, ``launch/train.py``):
+   (a) internlm2-1.8b at full width and depth in bf16, B 8, S 128, 20
+   AdamW steps through ``launch/train.main``: every loss finite, the eval
+   loss falls, the flash kernel launches once a layer in each no-grad
+   eval pass and no kernel inside the steps (the training route); ms a
+   step, tokens/s and peak memory; (b) fp32 copies at full width, card
+   against CPU from the same weights: internlm2-1.8b at depth 2 (B 2, S 64,
+   3 steps) and zamba2-2.7b at one group (6 mamba layers and the shared
+   block; B 2, S 256, 2 steps), warmup_cosine; the first loss and grad
+   norm within TOL_TRAIN_FIRST, each loss within TOL_TRAIN_LOSS, each
+   param leaf within TOL_TRAIN_PARAMS (relative L2), and the trained
+   params' eval pass (flash, and the SSD for zamba2, on the card) within
+   TOL_TRAIN_LOSS; (c) the smoke configs, ``lm`` and ``apcvfl_distill``
+   at one and two micro-batches, one step each, card against CPU.
+
 Launch counters are zeroed just before each run of a path (serve fp32,
 serve int8, train, probe, lm, each zamba prefill and the zamba decode,
-each card run of phase 9, phase 10's spec files) and read just after; every kernel must have launched on its path.  The last
+each card run of phase 9, phase 10's spec files, each runtime stream and
+the fault run, each eval pass and the steps of phase 12) and read just
+after; every kernel must have launched on its path.  The last
 lines are a ``details:`` line (every measurement as JSON), the ``kernels``
 JSON, the card's name and power limit, and ``{"ok": true, "device":
 ...}``.
@@ -324,6 +356,34 @@ LM = dict(arch="internlm2-1.8b", batch=8, slots=1024, prefill_len=128,
 LM_PREFILL = (2, 2048)                  # prefill_step's (B, S)
 LM_CHECK = dict(layers=2, requests=8, slots=256, max_new=16, steps=8)
 CARD = "cuda"                           # the device the LM phase serves on
+# phase 11: the live runtime on phase 3's bundle, two tenants (fp32, int8);
+# (a) a Poisson and a bursty stream per tenant (the reference's burst
+# defaults: 4x the rate ON for 200 ms, a quarter OFF for 200 ms); (c) the
+# card against the CPU under a fixed service model, with an admission bound
+# that sheds part of the bursty stream; (d) a fault plan through the CLI
+RUNTIME = dict(requests=2000, rate_rps=300.0, max_rows=64, p_known=0.5,
+               slo_ms=100.0)
+RUNTIME_CHECK = dict(arrivals="bursty", queue_rows=1024,
+                     service_ms=(2.0, 0.02))     # ms a dispatch + a row
+RUNTIME_FAULT = dict(plan="passive_dropout.json", requests=500)
+# phase 12: LM training.  (a) the full config at full width and depth in
+# bf16 through launch/train; (b) depth-cut fp32 copies at full width, card
+# against CPU, AdamW with warmup_cosine; (c) the smoke configs, one step of
+# each objective and micro-batch count, card against CPU
+LM_TRAIN = dict(arch="internlm2-1.8b", steps=20, batch=8, seq=128)
+LM_TRAIN_CHECK = {
+    "internlm2-1.8b": dict(layers=2, batch=2, seq=64, steps=3),
+    "zamba2-2.7b": dict(layers=6, batch=2, seq=256, steps=2)}
+LM_TRAIN_LR = (3e-4, 1, 3)       # warmup_cosine(peak, warmup, total)
+TOL_TRAIN_LOSS = 1e-4            # card vs CPU loss a step, relative
+TOL_TRAIN_FIRST = 1e-5           # the first step's loss and grad norm
+TOL_TRAIN_PARAMS = 1e-4          # card vs CPU params, relative L2 a leaf
+# a zero-initialised leaf (zamba2's conv_b) holds only the steps' updates,
+# so Adam's sign-like steps on its noise-level gradient coordinates weigh on
+# its norm: its bound is placed by the readings (b) takes in every run, the
+# CPU's own spread below it and two planted faults above it
+TOL_TRAIN_PARAMS_ZERO_INIT = 5e-4
+LM_TRAIN_FAULTS = ("AdamW eps 1e-6", "mamba D's gradient dropped")
 
 
 def log(msg: str) -> None:
@@ -2493,6 +2553,452 @@ def phase_experiments() -> dict:
     return res
 
 
+def _tenant_lines(report: dict) -> dict:
+    """Per tenant: rows/s, queue and service p50/p99, SLO attainment, shed
+    rate, dispatches and mean batch rows."""
+    out = {}
+    for name, t in report["tenants"].items():
+        lat = t["latency_ms"]
+        offered = t["requests"] + t["shed_requests"]
+        out[name] = {
+            "rows_per_s": t["rows_per_s"],
+            "queue_ms_p50": lat["queue"]["p50"],
+            "queue_ms_p99": lat["queue"]["p99"],
+            "service_ms_p50": lat["service"]["p50"],
+            "service_ms_p99": lat["service"]["p99"],
+            "slo_attainment": t["slo"]["attainment"],
+            "shed_rate": round(t["shed_requests"] / offered, 4)
+            if offered else 0.0,
+            "dispatches": t["dispatches"],
+            "mean_batch_rows": t["mean_batch_rows"]}
+    return out
+
+
+def _timed_streams(sc, rt, arrivals: str, requests: int) -> list:
+    tenants = ("fp32", "int8")
+    return rt.merge_streams(*(
+        rt.make_timed_stream(sc.active.x, sc.active.ids, requests,
+                             tenant=name, arrivals=arrivals,
+                             rate_rps=RUNTIME["rate_rps"], seed=21 + k,
+                             max_rows=RUNTIME["max_rows"],
+                             p_known=RUNTIME["p_known"])
+        for k, name in enumerate(tenants)))
+
+
+def _registry(rt, bundle, device: str):
+    reg = rt.TenantRegistry(device=device)
+    for name, q in (("fp32", None), ("int8", "int8")):
+        reg.register(name, bundle, quantize=q)
+    reg.warmup()
+    return reg
+
+
+def phase_runtime() -> dict:
+    """The live multi-tenant runtime (``serve/runtime.py``) on phase 3's
+    full-width bundle: (a) live Poisson and bursty streams on the card,
+    measured service times; (b) every micro-batch replayed bit for bit by
+    a solo engine; (c) the card against the CPU under a fixed service
+    model: the same dispatch log and shed set, logits within TOL_ENGINE;
+    (d) a fault plan through ``serve_vfl.main --arrival poisson --fault``."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_vfl
+    from repro_torch.serve import runtime as rt
+    from repro_torch.serve.vfl import ModelBundle
+    log("=== phase 11: the live runtime, two tenants (fp32, int8) on "
+        "mimic3 ===")
+    sc, bundle = make_bundle()
+    res = {"launches": {k: 0 for k in ops.LAUNCHES}}
+    reg = _registry(rt, bundle, CARD)
+    bundles = {"fp32": bundle, "int8": bundle}
+    smi = _smi()
+    for arrivals in ("poisson", "bursty"):
+        reg.reset_stats()
+        stream = _timed_streams(sc, rt, arrivals, RUNTIME["requests"])
+        runtime = rt.ServingRuntime(
+            reg, rt.RuntimeConfig(slo_ms=RUNTIME["slo_ms"]))
+        ops.reset_launches()
+        report = runtime.run(stream)
+        counts = dict(ops.LAUNCHES)
+        _require(counts["lane_mlp_fwd"] > 0 and counts["int8_matmul"] > 0,
+                 f"runtime {arrivals}: launches {counts}")
+        _require(report["served"] + report["shed_requests"]
+                 == 2 * RUNTIME["requests"], report["served"])
+        for k, v in counts.items():
+            res["launches"][k] += v
+        parity = rt.verify_dispatch_parity(runtime, bundles)
+        for name, p in parity.items():
+            _require(p["batches"] > 0 and p["bit_identical"],
+                     f"runtime {arrivals} {name}: replay {p}")
+        lines = _tenant_lines(report)
+        res[arrivals] = {"tenants": lines, "parity": parity,
+                         "launches": counts,
+                         "measured_wall_s": report["measured_wall_s"],
+                         "virtual_elapsed_ms": report["virtual_elapsed_ms"],
+                         "slo": report["slo"],
+                         "shed_rate": report["shed_rate"]}
+        log(f"runtime {arrivals} at {RUNTIME['rate_rps']} req/s a tenant, "
+            f"SLO {RUNTIME['slo_ms']} ms ({smi}): {json.dumps(lines)}; "
+            f"replay bit-identical {[p['batches'] for p in parity.values()]}"
+            f" batches; launches {counts}")
+
+    # (c) the card against the CPU under a fixed service model
+    a, b = RUNTIME_CHECK["service_ms"]
+    model = lambda rows: a + b * rows
+    cfg = rt.RuntimeConfig(slo_ms=RUNTIME["slo_ms"],
+                           max_queue_rows=RUNTIME_CHECK["queue_rows"])
+    runs = {}
+    for dev in (CARD, "cpu"):
+        r = reg if dev == CARD else _registry(rt, bundle, "cpu")
+        r.reset_stats()
+        stream = _timed_streams(sc, rt, RUNTIME_CHECK["arrivals"],
+                                RUNTIME["requests"])
+        runtime = rt.ServingRuntime(r, cfg, service_model=model)
+        report = runtime.run(stream)
+        runs[dev] = (stream, runtime, report)
+    log_of = lambda rtm: [(d.tenant, d.t_dispatch_ms,
+                           [tr.req.rid for tr in d.group])
+                          for d in rtm.dispatch_log]
+    shed_of = lambda st: [(tr.tenant, tr.req.rid) for tr in st if tr.shed]
+    _require(log_of(runs[CARD][1]) == log_of(runs["cpu"][1]),
+             "card and cpu runtimes dispatched differently")
+    _require(shed_of(runs[CARD][0]) == shed_of(runs["cpu"][0])
+             and shed_of(runs["cpu"][0]),
+             "card and cpu runtimes shed differently (or shed nothing)")
+    err = max(float(np.abs(g.req.logits - w.req.logits).max())
+              for g, w in zip(runs[CARD][0], runs["cpu"][0]) if not w.shed)
+    _require(err <= TOL_ENGINE, f"runtime card vs cpu logits {err}")
+    res["card_vs_cpu"] = {"dispatches": len(runs["cpu"][1].dispatch_log),
+                          "shed": len(shed_of(runs["cpu"][0])),
+                          "max_abs_logit_err": err}
+    log(f"runtime card vs cpu (fixed service model, bursty, queue bound "
+        f"{RUNTIME_CHECK['queue_rows']} rows): identical dispatch log "
+        f"({res['card_vs_cpu']['dispatches']} dispatches) and shed set "
+        f"({res['card_vs_cpu']['shed']}), max|dlogit| {err:.3e}")
+
+    # (d) a fault plan through the CLI; the dispatches' paths are recorded
+    # by a subclass of the runtime put in the CLI's way
+    class Recorded(rt.ServingRuntime):
+        runs = []
+
+        def run(self, stream, **kw):
+            paths = []
+            for eng in self.registry.engines.values():
+                def predict(x, ids=None, _e=eng, _real=eng.predict):
+                    c0 = _e.stats.dispatches.get("collab", 0)
+                    out = _real(x, ids)
+                    paths.append(_e.stats.dispatches.get("collab", 0) > c0)
+                    return out
+                eng.predict = predict
+            report = super().run(stream, **kw)
+            Recorded.runs.append((self, paths))
+            return report
+
+    plan = os.path.join(ROOT, "examples", "faults", RUNTIME_FAULT["plan"])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bundle")
+        bundle.save(path)
+        out = os.path.join(tmp, "fault.json")
+        argv = ["--load", path, "--dataset", SCENARIO["dataset"],
+                "--aligned", str(SCENARIO["aligned"]),
+                "--active-features", str(SCENARIO["active_features"]),
+                "--requests", str(RUNTIME_FAULT["requests"]),
+                "--arrival", "poisson", "--fault", plan, "--out", out]
+        real = serve_vfl.rt.ServingRuntime
+        serve_vfl.rt.ServingRuntime = Recorded
+        try:
+            ops.reset_launches()
+            rc = serve_vfl.main(argv)
+            counts = dict(ops.LAUNCHES)
+        finally:
+            serve_vfl.rt.ServingRuntime = real
+        _require(rc == 0, rc)
+        with open(out) as fh:
+            stats = json.load(fh)
+    fb = stats["faults"]["tenants"]["default"]
+    runtime, paths = Recorded.runs[-1]
+    recovered = fb["recovered_at_ms"]
+    after = [c for d, c in zip(runtime.dispatch_log, paths)
+             if d.t_dispatch_ms >= recovered]
+    _require(stats["faults"]["events_applied"] == 2
+             and fb["collab_dispatches_while_faulted"] == 0
+             and fb["cache_version"] == 2 and not fb["cache_stale"]
+             and any(after), f"faults: {fb}, collab after recovery "
+             f"{sum(after)}")
+    _require(counts["lane_mlp_fwd"] > 0, f"fault run launches {counts}")
+    for k, v in counts.items():
+        res["launches"][k] += v
+    res["fault"] = {"faults": stats["faults"], "launches": counts,
+                    "collab_dispatches_after_recovery": int(sum(after)),
+                    "slo": stats["slo"]}
+    log(f"runtime fault plan {RUNTIME_FAULT['plan']}: {fb}; collab "
+        f"dispatches after recovery {sum(after)} of {len(after)}")
+    torch.cuda.synchronize()
+    return res
+
+
+def _l2_rel(got, want) -> float:
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).norm() / want.norm())
+
+
+def _train_run(fns, params, state, batches: list, device: str) -> tuple:
+    """Steps on ``device`` from copies of ``params``: (losses, grad norms,
+    final params, launches during the steps)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.tree import tree_map
+    p = tree_map(lambda t: t.to(device), params)
+    s = tree_map(lambda t: t.to(device), state._asdict())
+    s = type(state)(**s)
+    losses, norms = [], []
+    ops.reset_launches()
+    for b in batches:
+        p, s, m = fns.step(p, s, {k: v.to(device) for k, v in b.items()})
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    counts = dict(ops.LAUNCHES)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return losses, norms, p, counts
+
+
+def _lm_batches(cfg, B: int, S: int, n: int, objective: str = "lm",
+                seed: int = 0) -> list:
+    import torch
+    from repro_torch.data.tokens import batches
+    rng = np.random.RandomState(seed + 100)
+    out = []
+    for b in batches(cfg.vocab_size, B, S, n, seed=seed):
+        d = {"tokens": torch.from_numpy(b["tokens"])}
+        if objective == "apcvfl_distill":
+            d["z_teacher"] = torch.from_numpy(
+                rng.randn(B, cfg.d_model).astype(np.float32))
+            d["aligned"] = torch.from_numpy(
+                (rng.rand(B) < 0.5).astype(np.float32))
+        out.append(d)
+    return out
+
+
+def _param_errs(cfg, got, want) -> dict:
+    """Each param leaf's relative L2 gap by name, and its ratio to the
+    leaf's bound (TOL_TRAIN_PARAMS, or TOL_TRAIN_PARAMS_ZERO_INIT for a
+    leaf the schema initialises to zeros)."""
+    from repro_torch.models import model as M
+    from repro_torch.sharding.policy import leaves
+
+    def names(t, pre=""):
+        if isinstance(t, dict):
+            return [n for k in sorted(t) for n in names(t[k], f"{pre}/{k}")]
+        return [pre]
+    defs = leaves(M.schema(cfg))
+    out = {}
+    for n, d, g, w in zip(names(want), defs, leaves(got), leaves(want)):
+        tol = (TOL_TRAIN_PARAMS_ZERO_INIT if d.init == "zeros"
+               else TOL_TRAIN_PARAMS)
+        e = _l2_rel(g, w)
+        out[n] = {"l2_rel": e, "of_bound": e / tol}
+    return out
+
+
+def _held_training(what: str, cfg, card, cpu) -> dict:
+    """Card against CPU: the first step's loss and grad norm within
+    TOL_TRAIN_FIRST, every step's loss within TOL_TRAIN_LOSS, every param
+    leaf within its bound in relative L2 (``_param_errs``)."""
+    loss_err = [abs(g - w) / abs(w) for g, w in zip(card[0], cpu[0])]
+    norm_err = [abs(g - w) / abs(w) for g, w in zip(card[1], cpu[1])]
+    errs = _param_errs(cfg, card[2], cpu[2])
+    worst = max(errs, key=lambda n: errs[n]["of_bound"])
+    ok = (all(np.isfinite(card[0])) and loss_err[0] <= TOL_TRAIN_FIRST
+          and norm_err[0] <= TOL_TRAIN_FIRST
+          and max(loss_err) <= TOL_TRAIN_LOSS
+          and errs[worst]["of_bound"] <= 1.0)
+    r = {"loss_rel_err": loss_err, "grad_norm_rel_err": norm_err,
+         "param_l2_rel_err": max(e["l2_rel"] for e in errs.values()),
+         "worst_leaf": {worst: errs[worst]}, "losses": card[0]}
+    log(f"train {what} card vs cpu: {r}")
+    _require(ok, f"train {what}: {r}")
+    return r
+
+
+def train_limit_readings(cfg, fns_of, params, state, batches: list,
+                         cpu) -> dict:
+    """The readings that place TOL_TRAIN_PARAMS_ZERO_INIT: the CPU's own
+    spread (the same steps at half the intra-op threads, other blockings
+    of the same math) must pass every leaf's bound, and each planted
+    fault (LM_TRAIN_FAULTS, run on the card) must fail some leaf's."""
+    import torch
+    from repro_torch.optim import schedule
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads // 2))
+    try:
+        spread = _train_run(fns_of(), params, state, batches, "cpu")
+    finally:
+        torch.set_num_threads(threads)
+    real = schedule.value_and_grad
+
+    def drop_d(loss_fn):
+        vag = real(loss_fn)
+
+        def f(p, b):
+            out, g = vag(p, b)
+            g["mamba"]["D"] = torch.zeros_like(g["mamba"]["D"])
+            return out, g
+        return f
+    runs = {"cpu spread": spread,
+            LM_TRAIN_FAULTS[0]: _train_run(fns_of(eps=1e-6), params, state,
+                                           batches, CARD)}
+    schedule.value_and_grad = drop_d
+    try:
+        runs[LM_TRAIN_FAULTS[1]] = _train_run(fns_of(), params, state,
+                                              batches, CARD)
+    finally:
+        schedule.value_and_grad = real
+    out = {}
+    for name, run in runs.items():
+        errs = _param_errs(cfg, run[2], cpu[2])
+        worst = max(errs, key=lambda n: errs[n]["of_bound"])
+        out[name] = {"worst_leaf": worst, **errs[worst],
+                     "zero_init": {n: e["l2_rel"] for n, e in errs.items()
+                                   if n.endswith("conv_b")}}
+    log(f"train limit readings ({cfg.name}): {out}")
+    _require(out["cpu spread"]["of_bound"] <= 1.0,
+             f"the CPU's own spread exceeds the param bounds: {out}")
+    for f in LM_TRAIN_FAULTS:
+        _require(out[f]["of_bound"] > 1.0,
+                 f"planted fault {f!r} within the param bounds: {out}")
+    return out
+
+
+def phase_lm_train() -> dict:
+    """LM training (``train/loop.py``, ``launch/train.py``): (a) the full
+    config on the card through ``launch/train.main`` (the steps on the
+    training route, the eval passes through the flash kernel); (b)
+    depth-cut fp32 copies at full width, card against CPU, with the eval
+    pass (flash, and the SSD for zamba2) held too; (c) the smoke configs,
+    ``apcvfl_distill`` and two micro-batches against one, card against
+    CPU."""
+    import torch
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.optim.adam import AdamW
+    from repro_torch.optim.schedule import warmup_cosine
+    from repro_torch.train.loop import make_train_step, task_loss
+    log(f"=== phase 12: train {LM_TRAIN['arch']} at full width and depth "
+        f"===")
+    res = {"launches": {k: 0 for k in ops.LAUNCHES}}
+    cfg = get_config(LM_TRAIN["arch"])
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "train.json")
+        argv = ["--arch", LM_TRAIN["arch"], "--steps",
+                str(LM_TRAIN["steps"]), "--batch", str(LM_TRAIN["batch"]),
+                "--seq", str(LM_TRAIN["seq"]), "--log-every", "5",
+                "--out", out]
+        torch.cuda.empty_cache()
+        rc = train_cli.main(argv)
+        _require(rc == 0, rc)
+        with open(out) as fh:
+            rec = json.load(fh)
+    L = cfg.n_layers
+    la = rec["launches"]
+    _require(all(np.isfinite(rec["losses"])) and rec["improved"]
+             and rec["eval_after"] < rec["eval_before"], rec)
+    _require(la["eval_before"]["flash_attention"] == L
+             and la["eval_after"]["flash_attention"] == L, la)
+    _require(all(v == 0 for v in la["steps"].values()),
+             f"kernels launched inside the steps: {la['steps']}")
+    for part in la.values():
+        for k, v in part.items():
+            res["launches"][k] += v
+    warm = rec["step_s"][1:]
+    tokens = LM_TRAIN["batch"] * LM_TRAIN["seq"]
+    smi = _smi()
+    res["full"] = {
+        "arch": LM_TRAIN["arch"], "dtype": cfg.dtype, "layers": L,
+        "batch": LM_TRAIN["batch"], "seq": LM_TRAIN["seq"],
+        "losses": rec["losses"], "eval_before": rec["eval_before"],
+        "eval_after": rec["eval_after"], "step_ms": [s * 1e3 for s in
+                                                     rec["step_s"]],
+        "step_ms_p50": float(np.median(warm)) * 1e3,
+        "tokens_per_s": tokens / float(np.median(warm)),
+        "peak_bytes": rec["peak_bytes"], "launches": la}
+    f = res["full"]
+    log(f"train {LM_TRAIN['arch']} (bf16, B {LM_TRAIN['batch']}, S "
+        f"{LM_TRAIN['seq']}, {LM_TRAIN['steps']} steps; {smi}): step "
+        f"{f['step_ms_p50']:.1f} ms p50 after the first "
+        f"({f['step_ms'][0]:.1f}), {f['tokens_per_s']:.0f} tokens/s, peak "
+        f"{(f['peak_bytes'] or 0) / 2**30:.2f} GiB; eval {rec['eval_before']:.4f} "
+        f"-> {rec['eval_after']:.4f}; launches {la}")
+    torch.cuda.empty_cache()
+
+    # (b) depth-cut fp32 copies at full width, card against CPU
+    res["check"] = {}
+    for arch, c in LM_TRAIN_CHECK.items():
+        cfg = get_config(arch).with_(n_layers=c["layers"], dtype="float32")
+        fns_of = lambda **kw: make_train_step(
+            cfg, AdamW(lr=LM_TRAIN_LR[0], **kw),
+            lr_schedule=warmup_cosine(*LM_TRAIN_LR))
+        fns = fns_of()
+        params, state = fns.init(torch.Generator().manual_seed(0))
+        batches = _lm_batches(cfg, c["batch"], c["seq"], c["steps"])
+        card = _train_run(fns, params, state, batches, CARD)
+        _require(all(v == 0 for v in card[3].values()),
+                 f"{arch}: kernels launched inside the steps: {card[3]}")
+        cpu = _train_run(fns, params, state, batches, "cpu")
+        r = _held_training(f"{arch} x{c['layers']} layers", cfg, card, cpu)
+        if cfg.family == "hybrid":
+            r["limit_readings"] = train_limit_readings(
+                cfg, fns_of, params, state, batches, cpu)
+        # the eval pass on the trained params: the kernels on the card
+        ev = _lm_batches(cfg, c["batch"], c["seq"], 1, seed=1234)[0]
+        ops.reset_launches()
+        with torch.no_grad():
+            e_card = float(task_loss(card[2], cfg, {
+                k: v.to(CARD) for k, v in ev.items()})[0])
+        counts = dict(ops.LAUNCHES)
+        with torch.no_grad():
+            e_cpu = float(task_loss(cpu[2], cfg, ev)[0])
+        n_attn = (cfg.n_layers if cfg.family == "dense"
+                  else cfg.n_layers // cfg.attn_period)
+        n_ssd = cfg.n_layers if cfg.family == "hybrid" else 0
+        _require(counts["flash_attention"] == n_attn
+                 and counts["ssd_intra_chunk"] == n_ssd,
+                 f"{arch} eval launches {counts}")
+        e_err = abs(e_card - e_cpu) / abs(e_cpu)
+        _require(e_err <= TOL_TRAIN_LOSS, f"{arch} eval {e_card} {e_cpu}")
+        for k, v in counts.items():
+            res["launches"][k] += v
+        r.update(eval_rel_err=e_err, eval_launches=counts, **c)
+        res["check"][arch] = r
+        del card, cpu, params, state
+        torch.cuda.empty_cache()
+
+    # (c) the smoke configs: each objective and micro-batch count
+    res["smoke"] = {}
+    for arch in LM_TRAIN_CHECK:
+        cfg = get_smoke(arch)
+        for objective in ("lm", "apcvfl_distill"):
+            batches = _lm_batches(cfg, 4, 64, 1, objective)
+            runs = {}
+            for n_micro in (1, 2):
+                fns = make_train_step(cfg, AdamW(), objective=objective,
+                                      n_micro=n_micro)
+                params, state = fns.init(torch.Generator().manual_seed(0))
+                card = _train_run(fns, params, state, batches, CARD)
+                cpu = _train_run(fns, params, state, batches, "cpu")
+                key = f"{arch}/{objective}/n_micro={n_micro}"
+                res["smoke"][key] = _held_training(key, cfg, card, cpu)
+                runs[n_micro] = card
+            if objective == "lm":
+                e = abs(runs[2][0][0] - runs[1][0][0]) / abs(runs[1][0][0])
+                _require(e <= TOL_TRAIN_FIRST,
+                         f"{arch}: n_micro 2 vs 1 loss {e}")
+                res["smoke"][f"{arch}/lm/micro_vs_whole"] = e
+    torch.cuda.synchronize()
+    return res
+
+
 def _smi() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -2554,6 +3060,10 @@ def main(argv=None) -> int:
     done("comparison")
     experiments = phase_experiments()
     done("experiments")
+    runtime = phase_runtime()
+    done("runtime")
+    lm_train = phase_lm_train()
+    done("lm_train")
 
     csrc = "src/repro_torch/kernels/csrc/"
     srcs = {"lane_mlp_fwd": ("lane_mlp_fwd.cu", "lane_mlp.py:57"),
@@ -2573,7 +3083,9 @@ def main(argv=None) -> int:
         launches = (serve["launches"][name] + train["launches"][name]
                     + lm["launches"][name] + zamba["launches"][name]
                     + comparison["launches"][name]
-                    + experiments["launches"][name])
+                    + experiments["launches"][name]
+                    + runtime["launches"][name]
+                    + lm_train["launches"][name])
         _require(launches > 0, f"{name} never launched on its path")
         kernels.append({
             "name": name, "route": "cuda", "source": csrc + srcs[name][0],
@@ -2626,12 +3138,25 @@ def main(argv=None) -> int:
            "probe card": [experiments["probe"]["wall_s"]["cuda"], 1],
            "probe cpu": [experiments["probe"]["wall_s"]["cpu"], 1]})
         + f"; {experiments['fig8_cut']['cut']}")
+    log(f"runtime ({SCENARIO['dataset']}, tenants fp32 + int8, "
+        f"{RUNTIME['requests']} requests each at {RUNTIME['rate_rps']} "
+        f"req/s, SLO {RUNTIME['slo_ms']} ms; {smi}): " + json.dumps(
+            {a: runtime[a]["tenants"] for a in ("poisson", "bursty")}))
+    log(f"lm_train ({LM_TRAIN['arch']}, bf16, B {LM_TRAIN['batch']}, S "
+        f"{LM_TRAIN['seq']}; {smi}): " + json.dumps(
+            {k: lm_train["full"][k] for k in (
+                "step_ms_p50", "tokens_per_s", "peak_bytes", "eval_before",
+                "eval_after")}
+            | {f"{a} card vs cpu": {k: r[k] for k in (
+                "loss_rel_err", "param_l2_rel_err", "eval_rel_err")}
+               for a, r in lm_train["check"].items()}))
     log("details: " + json.dumps({"timing": timing, "serve": serve,
                                   "train": train, "train_time": train_time,
                                   "turns": turns, "g3_limit": limit,
                                   "lm": lm, "zamba": zamba,
                                   "comparison": comparison,
                                   "experiments": experiments,
+                                  "runtime": runtime, "lm_train": lm_train,
                                   "elapsed_s": elapsed,
                                   "wrappers": wrappers,
                                   "torch": torch.__version__,

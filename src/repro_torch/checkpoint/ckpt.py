@@ -33,7 +33,12 @@ def _flatten(tree: Any, prefix: str = "") -> dict:
 
 def _host(v) -> np.ndarray:
     if isinstance(v, torch.Tensor):
-        return v.detach().cpu().numpy()
+        v = v.detach().cpu()
+        if v.dtype == torch.bfloat16:
+            # numpy has no bf16: save it as JAX does, an ml_dtypes array
+            import ml_dtypes
+            return v.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        return v.numpy()
     return np.asarray(v)
 
 

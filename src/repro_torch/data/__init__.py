@@ -1,2 +1,2 @@
-"""Synthetic datasets and the vertical partitioner (numpy copies of
-``repro.data``)."""
+"""Synthetic datasets, the vertical partitioner and the LM token stream
+(numpy copies of ``repro.data``)."""

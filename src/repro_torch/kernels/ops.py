@@ -24,7 +24,9 @@ its mean, whose backward folds the mean's in.  The three
 forward-only kernels (flash attention, decode attention, the SSD block)
 refuse a CUDA input that requires grad while grad is enabled, rather than
 return an output detached from the graph; on the CPU their plain versions
-stay differentiable.
+stay differentiable.  The models never hand them such an input: under
+autograd they take the reference's training route (``models/attention.py``
+``needs_grad``).
 """
 from __future__ import annotations
 
@@ -47,10 +49,12 @@ def _refuse_grad(what: str, *ts: torch.Tensor) -> None:
     """Raise where a forward-only kernel would silently cut the graph."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise RuntimeError(
-            f"{what}: the CUDA kernel has no backward until ROADMAP.md "
-            f"Queue 1 item 8 settles the LM training route, so its output "
-            f"would be detached from autograd; call it under "
-            f"torch.no_grad() or with inputs that do not require grad")
+            f"{what}: the CUDA kernel has no backward, so its output would "
+            f"be detached from autograd; under autograd the models take "
+            f"the reference's training route instead (attention's _sdpa, "
+            f"the SSD's einsums; the JAX package differentiates no Pallas "
+            f"kernel there either): call the kernel under torch.no_grad() "
+            f"or with inputs that do not require grad")
 
 
 def _on_cuda(x: torch.Tensor, what: str) -> bool:

@@ -10,6 +10,10 @@ Run:  PYTHONPATH=src python -m repro_torch.launch.serve_vfl --smoke
       ... --quantize int8          # int8 active path (int8 matmul kernel)
       ... --device cpu             # the plain path, no card needed
       ... --n-parties 3            # one active and two passive parties
+      PYTHONPATH=src python -m repro_torch.launch.serve_vfl \
+          --load /tmp/apcvfl --dataset bcw --aligned 150 \
+          --arrival poisson --rate-rps 300 --slo-ms 100 \
+          [--fault examples/faults/passive_dropout.json]
 
 Without ``--load`` it trains ``run_apcvfl`` with ``use_kernel=True`` (on
 the card every autoencoder and the Eq. 5 loss go through the kernels),
@@ -22,8 +26,17 @@ every bucket shape before the stream (on CUDA that builds and loads the
 kernels), so the stream's latencies are serving, not set-up.
 ``--n-parties K`` (K > 2) trains ``multiparty.run_apcvfl_k`` on a K-party
 split instead (``make_scenario_k``); the bundle caches the concat of the
-K-1 passive latent blocks.  The arrival-clocked runtime (``--arrival
-poisson|bursty``) and ``--fault`` are not ported yet.
+K-1 passive latent blocks.
+
+``--arrival poisson|bursty`` switches from the backlog drain
+(``serve_stream``) to the live serving runtime (``serve.runtime``):
+requests arrive on a seeded virtual clock, the SLO-aware scheduler
+micro-batches them with admission control, and queueing latency is
+reported apart from service latency, with SLO attainment and shed rate.
+``--fault PLAN.json`` injects a ``robustness.faults.FaultPlan`` into that
+runtime (its events target tenant ``default``); the backlog drain has no
+clock to fire events on, so ``--fault`` with ``--arrival stream`` is
+refused.
 """
 from __future__ import annotations
 
@@ -41,7 +54,9 @@ from repro_torch import resolve_device
 from repro_torch.core import multiparty, pipeline
 from repro_torch.data.synthetic import make_dataset
 from repro_torch.data.vertical import make_scenario
+from repro_torch.robustness.faults import FaultPlan
 from repro_torch.serve import quant
+from repro_torch.serve import runtime as rt
 from repro_torch.serve import vfl as sv
 
 
@@ -68,10 +83,20 @@ def main(argv=None) -> int:
                          "the fp32-parity report")
     ap.add_argument("--arrival", choices=["stream", "poisson", "bursty"],
                     default="stream",
-                    help="only 'stream' (drain the request list as a "
-                         "backlog) is ported")
+                    help="'stream' = drain the request list as a backlog "
+                         "(serve_stream); 'poisson'/'bursty' = live "
+                         "arrival-clocked runtime with SLO micro-batching")
+    ap.add_argument("--rate-rps", type=float, default=200.0,
+                    help="arrival rate for --arrival poisson/bursty")
+    ap.add_argument("--slo-ms", type=float, default=100.0,
+                    help="end-to-end latency SLO for the live runtime")
+    ap.add_argument("--queue-rows", type=int, default=4096,
+                    help="admission bound: queued rows beyond this shed")
     ap.add_argument("--fault", default=None, metavar="PLAN.json",
-                    help="not ported: needs the live runtime")
+                    help="inject a robustness.faults.FaultPlan into the "
+                         "live runtime (requires --arrival poisson|"
+                         "bursty); events target tenant 'default' (see "
+                         "examples/faults/passive_dropout.json)")
     ap.add_argument("--bundle", default=None,
                     help="save the exported bundle here and serve the "
                          "RELOADED copy (round-trip proof)")
@@ -90,10 +115,15 @@ def main(argv=None) -> int:
         args.requests = min(args.requests, 300)
     if args.n_parties < 2:
         ap.error("--n-parties needs at least 2 (one active, one passive)")
-    if args.arrival != "stream" or args.fault:
-        ap.error("--arrival poisson|bursty and --fault need the live "
-                 "serving runtime, which lands in a later slice of the "
-                 "port; use --arrival stream")
+    plan = None
+    if args.fault:
+        if args.arrival == "stream":
+            ap.error("--fault needs the live runtime: use --arrival "
+                     "poisson or bursty (the backlog drain has no clock "
+                     "to trigger events on)")
+        plan = FaultPlan.load(args.fault)
+        print(f"fault plan {plan.name!r}: "
+              f"{len(plan.serving_events())} serving events")
     device = resolve_device(args.device)
 
     ds = make_dataset(args.dataset, seed=args.seed)
@@ -135,27 +165,31 @@ def main(argv=None) -> int:
               f"(rel {parity['rel_logit_delta']:.4f}), flip rate "
               f"{parity['pred_flip_rate']:.4f}, "
               f"{parity['compression']}x weight compression")
-    engine = sv.VFLServingEngine(bundle, buckets=buckets, quantize=quantize,
-                                 device=device)
-    engine.warmup()
-    requests = sv.make_request_stream(
-        sc.active.x, sc.active.ids, args.requests, seed=args.seed + 1,
-        max_rows=args.max_rows, p_known=args.p_known)
-    stats = sv.serve_stream(engine, requests)
-
     dev_name = (torch.cuda.get_device_name(device)
                 if device.type == "cuda" else "cpu")
-    print(f"\n=== served {stats['requests']} requests "
-          f"({stats['rows']} rows) in {stats['wall_s']}s on {dev_name} ===")
-    print(f"throughput: {stats['rows_per_s']} rows/s "
-          f"({stats['requests_per_s']} req/s)")
-    print(f"latency p50/p99: {stats['latency_ms_p50']} / "
-          f"{stats['latency_ms_p99']} ms (service; queueing separate "
-          f"in latency_ms block)")
-    print(f"cache hit-rate: {stats['cache_hit_rate']}  "
-          f"dispatches: {stats['dispatches']}")
-    print(f"batch shapes: {stats['compiled']['by_path']} "
-          f"(distinct: {stats['compiled']['distinct_batch_shapes']})")
+    if args.arrival != "stream":
+        stats = _serve_live(args, sc, bundle, buckets, quantize, plan,
+                            device, dev_name)
+    else:
+        engine = sv.VFLServingEngine(bundle, buckets=buckets,
+                                     quantize=quantize, device=device)
+        engine.warmup()
+        requests = sv.make_request_stream(
+            sc.active.x, sc.active.ids, args.requests, seed=args.seed + 1,
+            max_rows=args.max_rows, p_known=args.p_known)
+        stats = sv.serve_stream(engine, requests)
+        print(f"\n=== served {stats['requests']} requests "
+              f"({stats['rows']} rows) in {stats['wall_s']}s on "
+              f"{dev_name} ===")
+        print(f"throughput: {stats['rows_per_s']} rows/s "
+              f"({stats['requests_per_s']} req/s)")
+        print(f"latency p50/p99: {stats['latency_ms_p50']} / "
+              f"{stats['latency_ms_p99']} ms (service; queueing separate "
+              f"in latency_ms block)")
+        print(f"cache hit-rate: {stats['cache_hit_rate']}  "
+              f"dispatches: {stats['dispatches']}")
+        print(f"batch shapes: {stats['compiled']['by_path']} "
+              f"(distinct: {stats['compiled']['distinct_batch_shapes']})")
     stats["device"] = {"type": device.type, "name": dev_name}
     if train_info is not None:
         stats["train"] = train_info
@@ -166,6 +200,49 @@ def main(argv=None) -> int:
             json.dump(stats, fh, indent=1)
         print(f"wrote {args.out}")
     return 0
+
+
+def _serve_live(args, sc, bundle, buckets, quantize, plan, device,
+                dev_name) -> dict:
+    """The arrival-clocked runtime with one tenant, ``default``: a seeded
+    timed stream, served under the SLO and admission bound (and the fault
+    plan); returns the runtime's report."""
+    registry = rt.TenantRegistry(buckets=buckets, device=device)
+    engine = registry.register("default", bundle, quantize=quantize)
+    engine.warmup()
+    stream = rt.make_timed_stream(
+        sc.active.x, sc.active.ids, args.requests, tenant="default",
+        arrivals=args.arrival, rate_rps=args.rate_rps, seed=args.seed + 1,
+        max_rows=args.max_rows, p_known=args.p_known)
+    runtime = rt.ServingRuntime(
+        registry, rt.RuntimeConfig(slo_ms=args.slo_ms,
+                                   max_queue_rows=args.queue_rows))
+    stats = runtime.run(stream, faults=plan)
+    lat = stats["latency_ms"]
+    print(f"\n=== {args.arrival} arrivals at {args.rate_rps} req/s on "
+          f"{dev_name}: served {stats['served']}/{stats['requests']} "
+          f"requests ({stats['rows']} rows) in "
+          f"{stats['virtual_elapsed_ms']:.0f} virtual ms ===")
+    print(f"throughput: {stats['rows_per_s']} rows/s over "
+          f"{stats['dispatches']} micro-batches "
+          f"(mean {stats['mean_batch_rows']} rows)")
+    print(f"queueing  p50/p99: {lat['queue']['p50']} / "
+          f"{lat['queue']['p99']} ms")
+    print(f"service   p50/p99: {lat['service']['p50']} / "
+          f"{lat['service']['p99']} ms")
+    print(f"SLO {args.slo_ms} ms: attainment "
+          f"{stats['slo']['attainment']}  shed rate {stats['shed_rate']}")
+    print(f"batch shapes: {stats['compiled']['by_path']} "
+          f"(distinct: {stats['compiled']['distinct_batch_shapes']})")
+    if plan is not None:
+        fb = stats["faults"]["tenants"].get("default", {})
+        print(f"faults: applied {stats['faults']['events_applied']} "
+              f"events, faulted={fb.get('faulted')}, "
+              f"collab_while_faulted="
+              f"{fb.get('collab_dispatches_while_faulted')}, "
+              f"cache_stale={fb.get('cache_stale')}, "
+              f"cache_version={fb.get('cache_version')}")
+    return stats
 
 
 def _train_and_export(args, sc, device):

@@ -7,11 +7,22 @@ slot (-1 = empty).  Full-attention decode is the special case W = seq_len;
 the sliding-window variant rolls slots with ``pos % W``.  RoPE is applied
 at write time so slot order never matters.
 
-Where the kernels sit.  On the card the attention always runs through the
-kernels: ``attention`` and the cache prefill
+Where the kernels sit.  On the card the attention runs through the kernels
+wherever no gradient is needed: ``attention`` and the cache prefill
 (``transformer.block_fwd_cache``) call ``ops.flash_attention`` and the
 one-token decode (``decode_attention``) calls ``ops.decode_attention``,
-whatever the config says.  On the CPU ``cfg.use_flash_kernel`` keeps the
+whatever the config says.
+
+The training route, the one named exception to "kernels on the card":
+where autograd records through the attention (``torch.is_grad_enabled()``
+and an input that requires grad, ``needs_grad``), every site takes the
+reference's training route instead, ``_sdpa`` (``_sdpa_chunked`` under
+``attn_chunk``), on the card as on the CPU.  The kernels are forward-only
+(``ops._refuse_grad``), and the JAX package differentiates no Pallas
+kernel on this path either: its ``use_flash_kernel`` defaults to False,
+so it trains through ``_sdpa``, and its flash kernel has no VJP.
+
+On the CPU and without a gradient ``cfg.use_flash_kernel`` keeps the
 reference's meaning in ``attention`` (set: the kernels' plain versions in
 ``kernels/ref.py``; unset: ``_sdpa``, ``_sdpa_chunked`` under
 ``attn_chunk``, bf16 scores under ``softmax_bf16``), and the port routes the
@@ -67,10 +78,17 @@ def _gqa_expand(kv: torch.Tensor, H: int, K: int) -> torch.Tensor:
     return expand_heads(kv, H)
 
 
-def use_kernels(cfg: ModelConfig, x: torch.Tensor) -> bool:
-    """The kernels' route: always for CUDA tensors, and on the CPU (their
-    plain versions) when ``cfg.use_flash_kernel`` is set."""
-    return x.is_cuda or cfg.use_flash_kernel
+def needs_grad(*ts: torch.Tensor) -> bool:
+    """True where autograd records through one of ``ts``: the training
+    route (module docstring)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def use_kernels(cfg: ModelConfig, x: torch.Tensor, *ts: torch.Tensor) -> bool:
+    """The kernels' route: for CUDA tensors, and on the CPU (their plain
+    versions) when ``cfg.use_flash_kernel`` is set, except where a
+    gradient is needed through ``x`` or ``ts`` (the training route)."""
+    return (x.is_cuda or cfg.use_flash_kernel) and not needs_grad(x, *ts)
 
 
 def _sdpa(q, k, v, bias, softmax_bf16: bool = False) -> torch.Tensor:
@@ -138,7 +156,8 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     v = _split_heads(x @ p["wv"], K, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    if x.is_cuda or (cfg.use_flash_kernel and cfg.causal):
+    if (x.is_cuda or (cfg.use_flash_kernel and cfg.causal)) \
+            and not needs_grad(q, k, v):
         out = kops.flash_attention(q, k, v, causal=cfg.causal,
                                    window=window if cfg.causal else 0)
     elif cfg.attn_chunk and S > cfg.attn_chunk:
@@ -192,7 +211,7 @@ def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     cache.slot_pos[slot] = pos
     k, v, slot_pos = cache
 
-    if use_kernels(cfg, x):
+    if use_kernels(cfg, x, q, k, v):
         out = kops.decode_attention(q[:, 0], k, v, slot_pos, pos,
                                     window=window)[:, None]
     else:

@@ -2,11 +2,17 @@
 ``repro.models.mamba2``).
 
 The intra-chunk block of ``ssd_chunked`` (dense (Lc x Lc) decay-weighted
-products and the chunk-final states) is always ``kernels.ops.
-ssd_intra_chunk``: the hand-written SSD kernel on the card, and on the CPU
-its plain version, which is the reference's einsum form.  The O(S / Lc)
-inter-chunk recurrence and the ``y_inter`` product stay plain PyTorch, as
-the reference keeps them outside its Pallas kernel.
+products and the chunk-final states) is ``kernels.ops.ssd_intra_chunk``
+wherever no gradient is needed: the hand-written SSD kernel on the card,
+and on the CPU its plain version, which is the reference's einsum form.
+Under autograd (the training route, ``attention.needs_grad``) it is the
+reference's einsums written in this module (``_intra_chunk_train``), on
+the card as on the CPU: the SSD kernel is forward-only, and the JAX
+package trains through these einsums and never through its Pallas SSD
+kernel.  Both routes sum the log-decays ``cs`` in float64 and round once
+(``kernels.ref.prefix_sum``).  The O(S / Lc) inter-chunk recurrence and
+the ``y_inter`` product stay plain PyTorch, as the reference keeps them
+outside its Pallas kernel.
 
 Where the reference mixes dtypes, the promotion is written out
 (``torch.matmul`` does not promote bf16 x fp32 as ``jnp`` does), and
@@ -24,6 +30,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import expand_heads, prefix_sum
+from repro_torch.models.attention import needs_grad
 from repro_torch.models.common import norm_apply, schema_norm
 from repro_torch.sharding.policy import ParamDef
 
@@ -76,6 +83,32 @@ def _causal_conv(p: dict, x: torch.Tensor) -> torch.Tensor:
     return F.silu(out + p["conv_b"].to(x.dtype))
 
 
+def _intra_chunk_train(x, dt, A, Bm, Cm, cs, Lc: int, cdt):
+    """The intra-chunk block and chunk-final states as the reference's
+    ``ssd_chunked`` forms them (``repro/models/mamba2.py``: ``xdt`` to
+    ``states``, with its ``_segsum``), differentiable: the training route.
+    ``cs`` (B, Nc, Lc, H) are the float64-summed log-decays.  Returns
+    ``y_intra`` (B, S, H, P) and ``states`` (B, Nc, H, N, P), fp32."""
+    B_, S, H, P = x.shape
+    Nc = S // Lc
+    chunk = lambda t: t.reshape((B_, Nc, Lc) + tuple(t.shape[2:]))
+    xdt = chunk(x * dt[..., None]).to(cdt)                 # (B,Nc,Lc,H,P)
+    Bh = chunk(expand_heads(Bm, H)).to(cdt)                # (B,Nc,Lc,H,N)
+    Ch = chunk(expand_heads(Cm, H)).to(cdt)
+    # _segsum: lower-triangular segment sums cs[l] - cs[s], -inf above
+    csh = cs.movedim(3, 2)                                 # (B,Nc,H,Lc)
+    tri = torch.ones((Lc, Lc), dtype=torch.bool, device=x.device).tril()
+    seg = torch.where(tri, csh[..., :, None] - csh[..., None, :], -torch.inf)
+    Lmat = torch.exp(seg).to(cdt)                          # (B,Nc,H,Lc,Lc)
+    scores = torch.einsum("bclhn,bcshn->bchls", Ch, Bh)
+    y_intra = torch.einsum("bchls,bcshp->bclhp", scores * Lmat,
+                           xdt).to(torch.float32)
+    decay_end = torch.exp(cs[:, :, -1:, :] - cs).to(cdt)   # (B,Nc,Lc,H)
+    states = torch.einsum("bcshn,bcsh,bcshp->bchnp", Bh, decay_end,
+                          xdt).to(torch.float32)
+    return y_intra.reshape(B_, S, H, P), states
+
+
 def ssd_chunked(cfg: ModelConfig, x, dt, A, Bm, Cm, init_state=None):
     """Chunked selective-state-space scan.
 
@@ -88,12 +121,15 @@ def ssd_chunked(cfg: ModelConfig, x, dt, A, Bm, Cm, init_state=None):
         raise ValueError(f"ssd_chunked: chunk {Lc} does not divide "
                          f"sequence {S}")
     Nc = S // Lc
-    y_intra, states = kops.ssd_intra_chunk(x, dt, A, Bm, Cm, Lc,
-                                           bf16=cfg.ssd_bf16)
-
-    # inter-chunk recurrence (fp32)
     cdt = torch.bfloat16 if cfg.ssd_bf16 else torch.float32
     cs = prefix_sum((dt * A).reshape(B_, Nc, Lc, H), 2)   # (B,Nc,Lc,H)
+    if needs_grad(x, dt, A, Bm, Cm):
+        y_intra, states = _intra_chunk_train(x, dt, A, Bm, Cm, cs, Lc, cdt)
+    else:
+        y_intra, states = kops.ssd_intra_chunk(x, dt, A, Bm, Cm, Lc,
+                                               bf16=cfg.ssd_bf16)
+
+    # inter-chunk recurrence (fp32)
     chunk_decay = torch.exp(cs[:, :, -1, :])              # (B,Nc,H)
     h = (torch.zeros((B_, H, N, P), dtype=torch.float32, device=x.device)
          if init_state is None else init_state)

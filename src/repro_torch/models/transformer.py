@@ -107,7 +107,8 @@ def block_fwd_cache(p: dict, cfg: ModelConfig, x: torch.Tensor,
     """block_fwd that also emits the roped K/V for cache prefill.  On the
     card (and on the CPU with ``cfg.use_flash_kernel``) the causal attention
     is one flash-attention call, the same function as the reference's
-    ``_sdpa`` with ``causal_mask``."""
+    ``_sdpa`` with ``causal_mask``; under autograd it is ``_sdpa`` (the
+    training route, ``attention.needs_grad``)."""
     h = norm_apply(p["ln1"], x, cfg.norm)
     B, S, _ = h.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -116,7 +117,7 @@ def block_fwd_cache(p: dict, cfg: ModelConfig, x: torch.Tensor,
     v = (h @ p["attn"]["wv"]).reshape(B, S, K, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    if attn.use_kernels(cfg, x):
+    if attn.use_kernels(cfg, x, q, k, v):
         o = kops.flash_attention(q, k, v, causal=True, window=window)
     else:
         o = attn._sdpa(q, attn._gqa_expand(k, H, K),

@@ -1,8 +1,8 @@
 """Robustness & privacy: hardened exchange defenses (``defense``), the
 attack registry (``attacks``) and seeded fault plans (``faults``), all
 keyed on APC-VFL's single latent exchange; the port of
-``repro.robustness`` (the serving half of the fault plans waits for the
-live serving runtime)."""
+``repro.robustness`` (the serving half of the fault plans runs in
+``serve.runtime.ServingRuntime.run(faults=)``)."""
 from repro_torch.robustness import attacks, defense, faults  # noqa: F401
 from repro_torch.robustness.attacks import (  # noqa: F401
     AttackReport, AttackSurface, available_attacks, build_surface,

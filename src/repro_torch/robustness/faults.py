@@ -1,5 +1,5 @@
 """Seeded fault plans: operational failures of the passive party; the
-port of ``repro.robustness.faults``, its training-time half.
+port of ``repro.robustness.faults``.
 
 APC-VFL's one-shot exchange makes the passive party a single point of
 failure.  At training time the exchange itself degrades: the passive
@@ -14,9 +14,11 @@ the same accounting.
 
 A ``FaultPlan`` is a seeded, JSON-round-trippable value
 (``examples/faults/*.json``) and carries serving-time events too
-(``t_ms``); the serving half that applies them, ``ServingRuntime.run(
-faults=)`` and ``launch.serve_vfl --fault``, comes with the live serving
-runtime (ROADMAP.md Queue 1 item 7).
+(``t_ms``, a tenant): ``serve.runtime.ServingRuntime.run(faults=)``
+applies them at dispatch boundaries (``dropout``/``stale``/``drift``
+invalidate the tenant's representation cache, ``recover`` refreshes it
+with a version bump), and ``launch.serve_vfl --arrival poisson|bursty
+--fault PLAN.json`` runs a plan from the command line.
 
 Drift noise is drawn as ``robustness.defense`` draws its noise: on the
 host from a CPU generator keyed by ``(seed, DRIFT_SALT, link)``, then

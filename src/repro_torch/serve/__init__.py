@@ -1,2 +1,2 @@
-"""Online VFL serving: bundle, representation cache, batched engine,
-int8 active path."""
+"""Online VFL serving: bundle, versioned representation cache, batched
+engine, int8 active path, and the live multi-tenant runtime."""

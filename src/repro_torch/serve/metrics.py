@@ -10,13 +10,14 @@ comparable field by field.  Latency is reported as two per-request series:
   completed it.
 
 ``series_summary`` is the percentile block every JSON artifact embeds;
-``ServeStats`` is the per-engine accumulator.  (``slo_report`` and the
-per-tenant summary come with the live runtime.)
+``slo_report`` judges an end-to-end series against a latency objective;
+``ServeStats`` is the per-engine (in the live runtime, per-tenant)
+accumulator.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -39,12 +40,35 @@ def series_summary(values_ms: List[float]) -> dict:
     return out
 
 
+def slo_report(e2e_ms: List[float], slo_ms: float, *,
+               offered: Optional[int] = None) -> dict:
+    """SLO attainment over an end-to-end latency series.
+
+    ``attainment`` is the fraction of SERVED requests inside the SLO;
+    ``goodput_frac`` re-bases it on ``offered`` (served + shed) so load
+    shedding cannot inflate the headline number."""
+    served = len(e2e_ms)
+    within = int(sum(1 for v in e2e_ms if v <= slo_ms))
+    offered = served if offered is None else int(offered)
+    return {
+        "slo_ms": float(slo_ms),
+        "served": served,
+        "within_slo": within,
+        "attainment": round(within / served, 4) if served else 0.0,
+        "offered": offered,
+        "goodput_frac": round(within / offered, 4) if offered else 0.0,
+    }
+
+
 @dataclass
 class ServeStats:
-    """Per-engine accumulator.  ``queue_ms``/``service_ms`` are parallel
-    per-request series appended together by ``serve_stream``."""
+    """Per-engine (in the live runtime, per-tenant) accumulator.
+    ``queue_ms``/``service_ms`` are parallel per-request series appended
+    together by the stream drivers."""
     requests: int = 0
     rows: int = 0
+    shed_requests: int = 0               # refused at admission
+    shed_rows: int = 0
     dispatches: Dict[str, int] = field(default_factory=dict)
     padded_rows: int = 0                 # rows of bucket padding dispatched
     queue_ms: List[float] = field(default_factory=list)
@@ -56,7 +80,7 @@ class ServeStats:
 
     def e2e_ms(self) -> List[float]:
         """Per-request end-to-end latency (queue + service); requires the
-        two series to be appended pairwise, as ``serve_stream`` does."""
+        two series to be appended pairwise, which both drivers do."""
         if len(self.queue_ms) != len(self.service_ms):
             raise ValueError(
                 f"queue/service series diverged "
@@ -75,3 +99,15 @@ class ServeStats:
         return {"queue": series_summary(self.queue_ms),
                 "service": series_summary(self.service_ms),
                 "end_to_end": series_summary(self.e2e_ms())}
+
+    def summary(self) -> dict:
+        """Flat JSON-ready view (the reference's keys)."""
+        return {
+            "requests": self.requests,
+            "rows": self.rows,
+            "shed_requests": self.shed_requests,
+            "shed_rows": self.shed_rows,
+            "dispatches": dict(self.dispatches),
+            "padded_rows": self.padded_rows,
+            "latency_ms": self.latency_summary(),
+        }

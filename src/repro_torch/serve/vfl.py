@@ -34,6 +34,11 @@ the joint-representation space.  This module serves such a model:
 * ``serve_stream`` drives a request list through the engine, coalescing
   requests into micro-batches up to the largest bucket, and reports
   throughput, service-time latency percentiles and cache hit-rate.
+
+* The cache is versioned (``refresh_cache`` / ``invalidate_cache``): a
+  stale cache misses every lookup, so its rows degrade to the active-only
+  path.  The live server that arrivals, SLOs, admission and fault plans
+  drive over many tenants is ``serve.runtime``.
 """
 from __future__ import annotations
 
@@ -225,25 +230,62 @@ class RepresentationCache:
     """Device-resident passive-latent cache keyed by row id: the Z_p rows
     the active party received for the PSI-aligned users.  The latents live
     on the device and are gathered there; only the id -> slot lookup is on
-    the host.  (The reference's versioned refresh/invalidate lifecycle
-    comes with the live runtime.)"""
+    the host.
 
-    def __init__(self, ids: np.ndarray, z, *, device="cuda"):
+    The cache is **versioned** for the lifecycle a long-lived server
+    needs: a fresh training round re-exports latents -> ``refresh``
+    installs the new arrays (one upload to the cache's device) and bumps
+    ``version``; a passive party that drops out or is known to have
+    drifted -> ``invalidate`` marks the cache stale WITHOUT discarding
+    version history.  A stale cache never serves: every lookup misses
+    (and is counted as a miss), so the engine degrades to the active-only
+    path instead of silently predicting from old latents."""
+
+    def __init__(self, ids: np.ndarray, z, *, version: int = 1,
+                 device="cuda"):
         self.device = resolve_device(device)
+        self.version = int(version)
+        self.stale = False
         self.hits = 0
         self.misses = 0
+        self._install(ids, z)
+
+    def _install(self, ids: np.ndarray, z) -> None:
         self._slot = id_positions(np.asarray(ids, np.int64))
         self.z = torch.as_tensor(np.asarray(z, np.float32),
                                  device=self.device)   # uploaded once
+
+    def __len__(self) -> int:
+        return len(self._slot)
 
     @property
     def hit_rate(self) -> float:
         total = self.hits + self.misses
         return self.hits / total if total else 0.0
 
+    def refresh(self, ids: np.ndarray, z) -> int:
+        """Install a newly exported latent set (a fresh training round's
+        ``cache_ids``/``cache_z``), clear staleness, bump + return the
+        version.  Hit/miss counters survive: they describe the serving
+        stream, not one latent generation."""
+        self._install(ids, z)
+        self.stale = False
+        self.version += 1
+        return self.version
+
+    def invalidate(self) -> None:
+        """Mark every cached latent stale (passive dropout / drift): all
+        lookups miss until the next ``refresh``."""
+        self.stale = True
+
     def lookup(self, ids: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-        """(hit_mask bool (n,), slot idx int32 (n,) — 0 where missed)."""
+        """(hit_mask bool (n,), slot idx int32 (n,) — 0 where missed).
+        Stale caches miss everything by construction."""
         ids = np.asarray(ids)
+        if self.stale:
+            self.misses += len(ids)
+            return (np.zeros(len(ids), bool),
+                    np.zeros(len(ids), np.int32))
         idx = np.fromiter((self._slot.get(int(i), -1) for i in ids),
                           np.int64, count=len(ids))
         hit = idx >= 0
@@ -285,14 +327,23 @@ class VFLServingEngine:
     active-only — pads each group to a bucket shape, and reassembles
     logits in request-row order.  ``compiled_shapes()`` reports every
     distinct (path, batch-rows) pair dispatched so far; PyTorch runs
-    eagerly, so ``jit_cache_sizes()`` is empty."""
+    eagerly, so ``jit_cache_sizes()`` is empty.
+
+    ``bucketer`` injects a SHARED bucketer (one across many tenants'
+    engines, ``runtime.TenantRegistry``); by default each engine owns
+    one.  The pure ``_active_apply`` / ``_collab_apply`` are what tenants
+    share: the port runs them eagerly, so there is no executable cache to
+    share and no ``jit_fns`` knob."""
 
     def __init__(self, bundle: ModelBundle, *,
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
+                 bucketer: Optional[BatchBucketer] = None,
                  quantize: Optional[str] = None,
                  device="cuda"):
         self.device = resolve_device(device)
-        self.bucketer = BatchBucketer(buckets)
+        self.bundle = bundle
+        self.bucketer = bucketer if bucketer is not None \
+            else BatchBucketer(buckets)
         self.stats = ServeStats()
         self._shapes: set = set()
         up = lambda t: convert.to_torch(t, device=self.device)
@@ -307,6 +358,7 @@ class VFLServingEngine:
             raise ValueError(f"quantize must be None or 'int8', "
                              f"got {quantize!r}")
         self.n_classes = int(np.shape(bundle.head_active["w"])[1])
+        self.quantize = quantize
         self.quant_params = None
         self.quant_meta = None
         self._active_fn = _active_apply
@@ -336,6 +388,27 @@ class VFLServingEngine:
                               "head_joint": up(bundle.head_joint),
                               "mean": self._mean,
                               "inv_scale": self._inv_scale}
+
+    # --- representation-cache lifecycle ------------------------------------
+
+    def refresh_cache(self, ids: np.ndarray, z) -> int:
+        """Install freshly re-exported passive latents (a new training
+        round's ``bundle.cache_ids``/``cache_z``); returns the bumped
+        cache version.  Only meaningful on a collaborative engine."""
+        if self.cache is None:
+            raise ValueError("refresh_cache: this bundle has no "
+                             "collaborative path (no cache to refresh)")
+        return self.cache.refresh(ids, z)
+
+    def invalidate_cache(self) -> None:
+        """Degrade to active-only for cached ids (passive dropout): the
+        cache goes stale, every lookup misses until ``refresh_cache``."""
+        if self.cache is not None:
+            self.cache.invalidate()
+
+    @property
+    def cache_version(self) -> Optional[int]:
+        return None if self.cache is None else self.cache.version
 
     # --- dispatch ----------------------------------------------------------
 

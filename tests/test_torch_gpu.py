@@ -1356,3 +1356,101 @@ def test_distill_rows_over_two_lanes_through_autograd_on_card(kind):
     for i, (a, b) in enumerate(zip(*runs)):
         assert a.shape == b.shape
         assert _scalederr(a, b) <= 1e-5, (kind, i)
+
+
+# ---------------------------------------------------------------------------
+# the live runtime and LM training
+# ---------------------------------------------------------------------------
+
+def _serving_bundle(seed=0, n_cached=300, d=5, n_classes=4):
+    """A Table-3 bundle with random weights (the runtime's decisions and
+    the replay's bits do not depend on their values)."""
+    from repro_torch import convert
+    from repro_torch.core import autoencoder as ae
+    from repro_torch.serve.vfl import ModelBundle
+    gen = torch.Generator().manual_seed(seed)
+    init = lambda w: convert.to_numpy(ae.init_autoencoder(gen, w,
+                                                          device="cpu"))
+    head = lambda: {"w": (torch.randn((256, n_classes), generator=gen)
+                          / 16).numpy(),
+                    "b": (torch.randn((n_classes,), generator=gen)
+                          * 0.1).numpy()}
+    return ModelBundle(
+        meta={"n_features_active": d}, g3=init(ae.table3_encoder("g3", d)),
+        head_active=head(), x_mean=np.zeros(d, np.float32),
+        x_scale=np.ones(d, np.float32),
+        g1_active=init(ae.table3_encoder("g1_active", d)),
+        g2=init(ae.table3_encoder("g2", 128 + 256)), head_joint=head(),
+        cache_ids=np.arange(n_cached, dtype=np.int64),
+        cache_z=torch.randn((n_cached, 256), generator=gen).numpy())
+
+
+@pytest.mark.gpu
+def test_runtime_two_tenant_dispatch_parity_bit_identical_on_card():
+    """An fp32 and an int8 tenant behind one registry on the card: every
+    dispatched micro-batch equals a solo engine's bits, and the path ran
+    through the lane-MLP forward and int8 kernels."""
+    dev = _card()
+    from repro_torch.serve import runtime as rt
+    bundle = _serving_bundle()
+    reg = rt.TenantRegistry(device=dev)
+    for name, q in (("fp32", None), ("int8", "int8")):
+        reg.register(name, bundle, quantize=q)
+    reg.warmup()
+    rng = np.random.RandomState(1)
+    x_pool = rng.randn(600, 5).astype(np.float32)
+    ids_pool = np.arange(600, dtype=np.int64)      # half of them cached
+    stream = rt.merge_streams(*(
+        rt.make_timed_stream(x_pool, ids_pool, 300, tenant=name, seed=k,
+                             rate_rps=400.0, max_rows=64)
+        for k, name in enumerate(("fp32", "int8"))))
+    runtime = rt.ServingRuntime(reg, rt.RuntimeConfig(slo_ms=100.0))
+    ops.reset_launches()
+    report = runtime.run(stream)
+    counts = dict(ops.LAUNCHES)
+    assert report["served"] + report["shed_requests"] == 600
+    assert counts["lane_mlp_fwd"] > 0 and counts["int8_matmul"] > 0
+    parity = rt.verify_dispatch_parity(runtime, {"fp32": bundle,
+                                                 "int8": bundle})
+    for name, p in parity.items():
+        assert p["batches"] > 0 and p["bit_identical"], (name, p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "zamba2-2.7b"])
+def test_smoke_train_step_card_against_cpu(arch):
+    """One AdamW step of the smoke config on the card against the CPU from
+    the same weights: loss and grad norm within 1e-5 relative, each param
+    leaf within 1e-4 in relative L2; no kernel launches inside the step
+    (the training route), and the no-grad eval launches the kernels."""
+    dev = _card()
+    from repro_torch.configs import get_smoke
+    from repro_torch.optim.adam import AdamW
+    from repro_torch.sharding.policy import leaves
+    from repro_torch.train.loop import make_train_step, task_loss
+    from repro_torch.tree import tree_map
+    cfg = get_smoke(arch)
+    fns = make_train_step(cfg, AdamW())
+    params, state = fns.init(torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.RandomState(2).randint(
+        0, cfg.vocab_size, (4, 64)).astype(np.int32))
+    out = {}
+    for d in ("cpu", dev):
+        p = tree_map(lambda t: t.to(d), params)
+        s = type(state)(**tree_map(lambda t: t.to(d), state._asdict()))
+        ops.reset_launches()
+        p, s, m = fns.step(p, s, {"tokens": toks.to(d)})
+        assert all(v == 0 for v in ops.LAUNCHES.values()), ops.LAUNCHES
+        with torch.no_grad():
+            ev = float(task_loss(p, cfg, {"tokens": toks.to(d)})[0])
+        out[str(d)] = (m, p, ev, dict(ops.LAUNCHES))
+    (mc, pc, ec, _), (mg, pg, eg, lg) = out["cpu"], out[str(dev)]
+    for key in ("loss", "grad_norm"):
+        assert abs(float(mg[key]) - float(mc[key])) <= 1e-5 * abs(
+            float(mc[key])), key
+    for a, b in zip(leaves(pg), leaves(pc)):
+        assert float((a.cpu().double() - b.double()).norm()
+                     / b.double().norm()) <= 1e-4
+    assert abs(eg - ec) <= 1e-5 * abs(ec)
+    assert lg["flash_attention"] > 0
+    assert (lg["ssd_intra_chunk"] > 0) == (cfg.family == "hybrid")

@@ -68,7 +68,8 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
                 "experiments.methods", "experiments.sweeps",
                 "launch.experiment", "core.protocol", "core.privacy",
                 "robustness.defense", "robustness.attacks",
-                "robustness.faults"):
+                "robustness.faults", "serve.runtime", "optim.schedule",
+                "data.tokens", "train.loop", "launch.train"):
         assert f"repro_torch.{mod}" in r.stdout.split(), mod
 
 
@@ -97,8 +98,9 @@ def test_entry_points_default_to_cuda():
                                   pipeline, privacy, splitnn, vfedtrans)
     from repro_torch.experiments import sweeps
     from repro_torch.robustness import attacks, defense, faults
-    from repro_torch.serve import quant, vfl
+    from repro_torch.serve import quant, runtime, vfl
     for fn in (vfl.VFLServingEngine.__init__, vfl.RepresentationCache,
+               runtime.TenantRegistry,
                autoencoder.init_mlp, autoencoder.init_autoencoder,
                quant.quantize_active_path, quant.parity_report,
                convert.to_torch, pipeline.run_apcvfl,
@@ -113,13 +115,13 @@ def test_entry_points_default_to_cuda():
                sweeps.sweep, defense.run_apcvfl_dp, attacks.build_surfaces,
                faults.run_faulted_apcvfl):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
-    from repro_torch.launch import experiment, serve, serve_vfl
+    from repro_torch.launch import experiment, serve, serve_vfl, train
     from repro_torch.serve import engine
     from repro_torch.sharding import policy
     for fn in (engine.Engine.__init__, policy.init_params,
                serve.build_params):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
-    for cli in (serve_vfl.main, serve.main, experiment.main):
+    for cli in (serve_vfl.main, serve.main, experiment.main, train.main):
         assert "default=\"cuda\"" in inspect.getsource(cli)
 
 

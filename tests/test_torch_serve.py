@@ -229,7 +229,8 @@ def test_cli_serves_a_jax_bundle(served, tmp_path, quantize, capsys):
 
 @pytest.mark.parametrize("argv,msg", [
     (["--n-parties", "1"], "at least 2"),
-    (["--load", "B", "--arrival", "poisson"], "runtime"),
+    (["--load", "B", "--arrival", "stream", "--fault", "plan.json"],
+     "runtime"),
     (["--load", "B", "--fault", "plan.json"], "runtime"),
     (["--load", "B", "--dataset", "credit"], "trained on dataset"),
     (["--load", "B", "--active-features", "4"], "active features"),
