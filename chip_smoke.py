@@ -159,18 +159,44 @@ Phases, in order; any failure ends the run with a non-zero exit:
    params' eval pass (flash, and the SSD for zamba2, on the card) within
    TOL_TRAIN_LOSS; (c) the smoke configs, ``lm`` and ``apcvfl_distill``
    at one and two micro-batches, one step each, card against CPU.
+13. moe_audio — the MoE decoder and the encoder-only audio stack: (a)
+   qwen3-moe-30b-a3b at full width and depth in bf16 (56.9 GiB, drawn in
+   slices on the card) through ``launch/serve.main --no-smoke`` (batch 8,
+   1024 slots, prefill 128, 16 requests of 16-128 prompt tokens, 32 new
+   each; exactly 48 flash launches a prefill and 48 decode launches a
+   step): tokens/s, step p50/p99, peak memory, the init time; then
+   ``prefill_step`` at B 2, S 2048 (C 320) and ten warm decode steps under
+   the profiler, the card's time split into routing, dispatch and
+   combine, the expert products, attention and the rest; (b) depth 2 in
+   fp32, weights made once on the CPU: the engine's tokens identical,
+   prefill and decode logits within TOL_LM, every layer's routes equal in
+   every call (the same top-1, the same experts with the same slots, so
+   the same dropped set); (c) on the card, ``capacity_factor = E / k``,
+   16 decode steps against the full forward within
+   TOL_DECODE_VS_FORWARD; (d) hubert-xlarge at full width and depth in
+   bf16, ``M.logits`` on 4 x 1500 frames (48 non-causal flash launches a
+   call), and at depth 2 in fp32 against the CPU within TOL_LM; (e)
+   qwen3 at full width, depth 2, bf16 through ``launch/train.main
+   --layers 2`` (20 steps: losses and aux finite, the eval loss falls, no
+   kernel inside the steps), and one step of the qwen3, kimi-k2 and
+   hubert (frame CE) smokes on the card against the CPU.
+   Phase 2 also holds flash at qwen3's heads, (1, 128, 32, 4, 128) and
+   (2, 2048, 32, 4, 128), and at hubert's, (4, 1500, 16, 16, 80), every
+   mask; phase 5 times them and decode attention at qwen3's heads.
 
 Launch counters are zeroed just before each run of a path (serve fp32,
 serve int8, train, probe, lm, each zamba prefill and the zamba decode,
 each card run of phase 9, phase 10's spec files, each runtime stream and
-the fault run, each eval pass and the steps of phase 12) and read just
-after; every kernel must have launched on its path.  The last
+the fault run, each eval pass and the steps of phase 12, phase 13's
+serve, ``prefill_step``, hubert's calls, eval passes and steps) and read
+just after; every kernel must have launched on its path.  The last
 lines are a ``details:`` line (every measurement as JSON), the ``kernels``
 JSON, the card's name and power limit, and ``{"ok": true, "device":
 ...}``.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import os
@@ -315,14 +341,20 @@ TOL_LM = 1e-4
 FLASH_SHAPES = ((1, 128, 16, 8, 128), (2, 2048, 16, 8, 128),
                 (1, 32, 16, 8, 128), (1, 200, 4, 2, 64), (2, 77, 4, 4, 32),
                 (2, 512, 32, 32, 80), (2, 2048, 32, 32, 80),
-                (2, 4096, 16, 8, 128))
+                (2, 4096, 16, 8, 128), (1, 128, 32, 4, 128),
+                (2, 2048, 32, 4, 128), (4, 1500, 16, 16, 80))
 # (B, S, H, K, hd); (2, 2048, 32, 32, 80) is zamba2's shared block at
-# prefill_step's size; the last is internlm2's heads at twice its length
-# (causal, window); a window of 100 ends inside a 64-key tile
+# prefill_step's size; (2, 4096, 16, 8, 128) is internlm2's heads at twice
+# its length (causal, window); then qwen3-moe-30b-a3b's GQA (8 q heads a
+# kv head) at the engine's prefill and at prefill_step's size, and
+# hubert-xlarge's MHA over 30 s of frames (1500, not a multiple of the
+# 64-key tile; the model runs it non-causal); a window of 100 ends inside
+# a 64-key tile
 FLASH_MASKS = ((True, 0), (True, 128), (True, 100), (False, 0))
 DECODE_W = (64, 1000, 1024)
 # decode attention's (H, K, hd): internlm2-1.8b's GQA (2 q heads a kv
-# head), zamba2's MHA, internlm2-20b's and nemotron-4-15b's 6, yi-6b's 8
+# head), zamba2's MHA, internlm2-20b's and nemotron-4-15b's 6, yi-6b's
+# and qwen3-moe-30b-a3b's 8
 DECODE_HEADS = ((16, 8, 128), (32, 32, 80), (48, 8, 128), (32, 4, 128))
 DECODE_WINDOWS = (0, 48)
 # bf16 decode attention also against its plain version in fp32 on the same
@@ -384,6 +416,24 @@ TOL_TRAIN_PARAMS = 1e-4          # card vs CPU params, relative L2 a leaf
 # CPU's own spread below it and two planted faults above it
 TOL_TRAIN_PARAMS_ZERO_INIT = 5e-4
 LM_TRAIN_FAULTS = ("AdamW eps 1e-6", "mamba D's gradient dropped")
+# phase 13: the MoE decoder and the encoder-only audio stack.  (a) the MoE
+# serving cell: qwen3-moe-30b-a3b, full width and depth, bf16 (56.9 GiB)
+MOE = dict(arch="qwen3-moe-30b-a3b", batch=8, slots=1024, prefill_len=128,
+           requests=16, prompt=(16, 129), max_new=32)
+MOE_PREFILL = (2, 2048)                 # prefill_step's (B, S): C = 320
+# (b) card vs CPU at full width, fp32, depth 2 (7.4 GiB a copy)
+MOE_CHECK = dict(layers=2, requests=8, slots=256, max_new=16, steps=8)
+# (c) decode vs forward on the card, capacity_factor = E / k (no drops)
+MOE_DECODE_VS_FORWARD = dict(batch=2, steps=16)
+# (d) hubert-xlarge at full width and depth in bf16: 30 s of 50 Hz frames
+# (1500 is not a multiple of the 64-key tile); depth 2 fp32 vs the CPU
+HUBERT = dict(arch="hubert-xlarge", batch=4, frames=1500, check_layers=2,
+              check_batch=2)
+# (e) training: qwen3 at full width, depth 2, bf16 through launch/train;
+# one step of each smoke config, card against CPU
+MOE_TRAIN = dict(arch="qwen3-moe-30b-a3b", layers=2, steps=20, batch=8,
+                 seq=128)
+MOE_TRAIN_SMOKES = ("qwen3-moe-30b-a3b", "kimi-k2-1t-a32b", "hubert-xlarge")
 
 
 def log(msg: str) -> None:
@@ -1440,43 +1490,56 @@ def _attention_kernel_sets(gen) -> dict:
     """Timing sets of the attention kernels in bf16 at the LM cells'
     shapes (internlm2-1.8b: H 16, K 8, hd 128): flash attention at
     ``prefill_step``'s B 2, S 2048 (causal) and, apart, at the engine's
-    one-prompt prefill (B 1, S 128) and at zamba2's shared block in its
-    ``prefill_step`` (B 2, S 2048, H = K = 32, hd 80); decode attention at
-    the engine's batch of 8 against its 1024-slot cache with slots 0..511
-    written, and apart at zamba2's heads (H = K = 32, hd 80).  Operations
-    count the pairs the mask keeps; bytes count q, k, v and out once (for
+    one-prompt prefill (B 1, S 128), at zamba2's shared block in its
+    ``prefill_step`` (B 2, S 2048, H = K = 32, hd 80), at qwen3-moe's
+    heads (H 32, K 4, hd 128) at both, and non-causal at hubert's (B 4, S
+    1500, H = K = 16, hd 80); decode attention at the engine's batch of 8
+    against its 1024-slot cache with slots 0..511 written, and apart at
+    zamba2's heads (H = K = 32, hd 80) and qwen3-moe's.  Operations count
+    the pairs the mask keeps; bytes count q, k, v and out once (for
     decode, the written slots' K/V rows)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     bf16 = torch.bfloat16
     sets = {}
-    for key, (B, S), (H, K, hd) in (
-            ("flash_attention", LM_PREFILL, (16, 8, 128)),
+    for key, (B, S), (H, K, hd), causal in (
+            ("flash_attention", LM_PREFILL, (16, 8, 128), True),
             ("flash_attention_engine_prefill", (1, LM["prefill_len"]),
-             (16, 8, 128)),
+             (16, 8, 128), True),
             ("flash_attention_zamba2_prefill", ZAMBA["prefill"],
-             (32, 32, 80))):
+             (32, 32, 80), True),
+            ("flash_attention_qwen3_prefill", MOE_PREFILL, (32, 4, 128),
+             True),
+            ("flash_attention_qwen3_engine_prefill",
+             (1, MOE["prefill_len"]), (32, 4, 128), True),
+            ("flash_attention_hubert", (HUBERT["batch"], HUBERT["frames"]),
+             (16, 16, 80), False)):
         q = _rand(gen, (B, S, H, hd)).to(bf16)
         k, v = (_rand(gen, (B, S, K, hd)).to(bf16) for _ in range(2))
+        pairs = S * (S + 1) / 2 if causal else S * S
         sets[key] = [dict(
-            shape=f"B={B} S={S} H={H} K={K} hd={hd} causal bf16",
-            flops=4.0 * B * H * hd * S * (S + 1) / 2,
+            shape=f"B={B} S={S} H={H} K={K} hd={hd} "
+                  f"{'causal' if causal else 'full'} bf16",
+            flops=4.0 * B * H * hd * pairs,
             bytes=2.0 * (2 * B * S * H * hd + 2 * B * S * K * hd),
             peak=PEAK_BF16_FLOPS, iters=10,
-            kernel=lambda a=(q, k, v): ops.flash_attention(*a, causal=True),
-            plain=lambda a=(q, k, v): ref.flash_attention_model(
-                *a, causal=True),
-            library=lambda a=(q, k, v): F.scaled_dot_product_attention(
-                *(t.transpose(1, 2) for t in a), is_causal=True,
-                enable_gqa=True))]
+            kernel=lambda a=(q, k, v), c=causal: ops.flash_attention(
+                *a, causal=c),
+            plain=lambda a=(q, k, v), c=causal: ref.flash_attention_model(
+                *a, causal=c),
+            library=lambda a=(q, k, v), c=causal:
+                F.scaled_dot_product_attention(
+                    *(t.transpose(1, 2) for t in a), is_causal=c,
+                    enable_gqa=True))]
     B, W, pos = LM["batch"], LM["slots"], LM["slots"] // 2 - 1
     sp = torch.where(torch.arange(W) <= pos, torch.arange(W), -1).to(
         torch.int32).cuda()
     valid = int((sp >= 0).sum())
     mask = (sp >= 0) & (sp <= pos)
     for key, (H, K, hd) in (("decode_attention", (16, 8, 128)),
-                            ("decode_attention_zamba2", (32, 32, 80))):
+                            ("decode_attention_zamba2", (32, 32, 80)),
+                            ("decode_attention_qwen3", (32, 4, 128))):
         q = _rand(gen, (B, H, hd)).to(bf16)
         kc, vc = (_rand(gen, (B, W, K, hd)).to(bf16) for _ in range(2))
         sets[key] = [dict(
@@ -1731,34 +1794,52 @@ def phase_lm() -> dict:
     """The dense decoder's serving path on the card (phase 7): the full
     cell through the CLI, ``prefill_step``, then depth 2 against the
     CPU."""
+    log(f"=== phase 7: serve {LM['arch']} at full width and depth ===")
+    res = serve_cell(LM, LM_PREFILL)
+    res["check"] = lm_card_vs_cpu()
+    return res
+
+
+def serve_cell(cell: dict, prefill: tuple, labels: tuple = ()) -> dict:
+    """An LM serving cell at full width and depth in bf16 on the card:
+    ``launch/serve.main --no-smoke`` (exactly one flash launch a layer a
+    prefill and one decode launch a layer a step; its peak memory), the
+    same weights drawn again (timed), ``prefill_step`` at ``prefill``
+    twice (the first also warms cuBLAS) and once under the profiler, and
+    ten warm decode steps under the profiler; with ``labels``, the
+    profiles split by MOE_RANGES (``_moe_ranges``).  The launches of the
+    CLI run and of the two timed ``prefill_step`` calls are the path's."""
     import time
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.serve.decode import prefill_step
-    log(f"=== phase 7: serve {LM['arch']} at full width and depth ===")
-    cfg = get_config(LM["arch"]).with_(use_flash_kernel=True)
+    from repro_torch.sharding.policy import leaves
+    cfg = get_config(cell["arch"]).with_(use_flash_kernel=True)
     L = cfg.n_layers
-    res = {"launches": {k: 0 for k in ops.LAUNCHES}}
+    smi = _smi()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "lm.json")
-        argv = ["--arch", LM["arch"], "--no-smoke", "--device", CARD,
-                "--batch", str(LM["batch"]), "--slots", str(LM["slots"]),
-                "--prefill-len", str(LM["prefill_len"]),
-                "--requests", str(LM["requests"]),
-                "--prompt-len", *map(str, LM["prompt"]),
-                "--max-new", str(LM["max_new"]), "--out", out]
+        argv = ["--arch", cell["arch"], "--no-smoke", "--device", CARD,
+                "--batch", str(cell["batch"]), "--slots", str(cell["slots"]),
+                "--prefill-len", str(cell["prefill_len"]),
+                "--requests", str(cell["requests"]),
+                "--prompt-len", *map(str, cell["prompt"]),
+                "--max-new", str(cell["max_new"]), "--out", out]
         ops.reset_launches()
         rc = serve.main(argv)
         counts = dict(ops.LAUNCHES)
         _require(rc == 0, rc)
         with open(out) as fh:
             stats = json.load(fh)
-    log(f"lm serve: {stats} (launches {counts})")
+    stats["peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"{cfg.name} serve ({smi}): {stats} (launches {counts})")
     _require(stats["n_layers"] == L and stats["dtype"] == "bfloat16"
-             and stats["completed"] == LM["requests"]
-             and stats["tokens_out"] == LM["requests"] * LM["max_new"],
+             and stats["completed"] == cell["requests"]
+             and stats["tokens_out"] == cell["requests"] * cell["max_new"],
              stats)
     _require(counts["flash_attention"] == L * stats["prefills"],
              f"flash launches {counts['flash_attention']}, expected "
@@ -1766,18 +1847,27 @@ def phase_lm() -> dict:
     _require(counts["decode_attention"] == L * stats["decode_steps"],
              f"decode launches {counts['decode_attention']}, expected "
              f"{L} x {stats['decode_steps']} steps")
-    res["serve"] = stats
-    res["serve_launches"] = counts
-    res["launches_per_decode_step"] = (counts["decode_attention"]
-                                       / stats["decode_steps"])
+    res = {"serve": stats, "serve_launches": counts,
+           "launches_per_decode_step": (counts["decode_attention"]
+                                        / stats["decode_steps"])}
+    torch.cuda.empty_cache()
 
-    # prefill_step at B 2, S 2048 on the same weights
+    # the same weights again, timed; then prefill_step on them
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     params = serve.build_params(cfg, device=CARD)
-    B, S = LM_PREFILL
+    torch.cuda.synchronize()
+    res["init_s"] = time.perf_counter() - t0
+    res["param_bytes"] = sum(t.numel() * t.element_size()
+                             for t in leaves(params))
+    log(f"{cfg.name} init: {res['init_s']:.2f} s for "
+        f"{res['param_bytes'] / 2**30:.2f} GiB")
+    B, S = prefill
     toks = torch.from_numpy(np.random.RandomState(1).randint(
         0, cfg.vocab_size, (B, S)).astype(np.int32)).to(CARD)
     walls = []
     ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(2):                 # the first call also warms cuBLAS
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1789,17 +1879,19 @@ def phase_lm() -> dict:
              == torch.bfloat16 and bool(torch.isfinite(lg).all()),
              (tuple(lg.shape), lg.dtype))
     _require(pcounts["flash_attention"] == 2 * L, pcounts)
-    prof = _profiled(lambda: prefill_step(params, cfg, {"tokens": toks}), 1)
-    res["prefill_step"] = {"B": B, "S": S, "ms": walls,
-                           "launches": pcounts, "profile": prof}
-    log(f"prefill_step B={B} S={S}: {walls} ms (launches {pcounts}); "
-        f"profile {prof}")
-    for k in ops.LAUNCHES:
-        res["launches"][k] = counts[k] + pcounts[k]
-    res["decode_profile"] = _profile_decode(params, cfg)
-    del params, lg
+    del lg
+    peak = torch.cuda.max_memory_allocated()
+    with _moe_ranges() if labels else contextlib.nullcontext():
+        prof = _profiled(lambda: prefill_step(params, cfg, {"tokens": toks}),
+                         1, labels)
+        res["decode_profile"] = _profile_decode(params, cfg, cell, labels)
+    res["prefill_step"] = {"B": B, "S": S, "ms": walls, "launches": pcounts,
+                           "peak_bytes": peak, "profile": prof}
+    log(f"prefill_step B={B} S={S}: {walls} ms, peak {peak / 2**30:.2f} "
+        f"GiB (launches {pcounts}); profile {prof}")
+    res["launches"] = {k: counts[k] + pcounts[k] for k in ops.LAUNCHES}
+    del params
     torch.cuda.empty_cache()
-    res["check"] = lm_card_vs_cpu()
     return res
 
 
@@ -1809,11 +1901,13 @@ KERNEL_NAMES = {"decode_kernel": "decode_attention",
                 "ssd_kernel": "ssd_intra_chunk"}
 
 
-def _profiled(fn, calls: int) -> dict:
+def _profiled(fn, calls: int, labels: tuple = ()) -> dict:
     """``calls`` calls of ``fn`` under the profiler: the host wall per call,
     the card's time per call by kind (each port kernel, GEMMs (cuBLAS), and
     the rest: PyTorch's elementwise, copy and reduction kernels), its busy
-    share of the wall, and the largest device items."""
+    share of the wall, and the largest device items; with ``labels``, also
+    the card's time per call inside each ``record_function`` range of those
+    names (``_moe_ranges``)."""
     import time
     import torch
     from torch.autograd import DeviceType
@@ -1828,7 +1922,18 @@ def _profiled(fn, calls: int) -> dict:
         wall_us = (time.perf_counter() - t0) * 1e6
     kinds = {k: 0.0 for k in (*KERNEL_NAMES.values(), "gemm", "other")}
     names: dict = {}
+    ranges = {k: 0.0 for k in labels}
+
+    def kernel_us(ev) -> float:
+        """The kernels launched inside a CPU event, its children's too
+        (not the range's own span on the device timeline)."""
+        return (sum(kn.duration for kn in ev.kernels if kn.name not in ranges)
+                + sum(kernel_us(c) for c in ev.cpu_children))
     for e in prof.events():
+        if e.name in ranges:
+            if e.device_type == DeviceType.CPU:
+                ranges[e.name] += kernel_us(e)
+            continue
         if e.device_type != DeviceType.CUDA:
             continue
         us = e.time_range.elapsed_us()
@@ -1839,38 +1944,49 @@ def _profiled(fn, calls: int) -> dict:
                 "gemm", "gemv", "cutlass", "xmma", "nvjet")) else "other")
         kinds[kind] += us
         names[e.name[:80]] = names.get(e.name[:80], 0.0) + us
-    return {"calls": calls, "wall_ms_per_call_profiled": wall_us / calls / 1e3,
-            "device_ms_per_call": {k: v / calls / 1e3
-                                   for k, v in kinds.items()},
-            "device_busy_share": sum(kinds.values()) / wall_us,
-            "top": sorted(((v / calls / 1e3, k) for k, v in names.items()),
-                          reverse=True)[:8]}
+    out = {"calls": calls,
+           "wall_ms_per_call_profiled": wall_us / calls / 1e3,
+           "device_ms_per_call": {k: v / calls / 1e3
+                                  for k, v in kinds.items()},
+           "device_busy_share": sum(kinds.values()) / wall_us,
+           "top": sorted(((v / calls / 1e3, k) for k, v in names.items()),
+                         reverse=True)[:8]}
+    if labels:
+        busy = sum(kinds.values())
+        out["device_ms_per_call_by_range"] = dict(
+            {k: v / calls / 1e3 for k, v in ranges.items()},
+            rest=(busy - sum(ranges.values())) / calls / 1e3)
+    return out
 
 
-def _profile_decode(params, cfg, steps: int = 10) -> dict:
-    """Decode steps of the LM cell's engine (8 requests in flight, warm):
-    ``steps`` timed by the engine, then ``steps`` under the profiler
-    (``_profiled``)."""
+def _profile_decode(params, cfg, cell: dict, labels: tuple = (),
+                    steps: int = 10) -> dict:
+    """Decode steps of an LM cell's engine (a batch of requests in flight,
+    warm): ``steps`` timed by the engine, then ``steps`` under the profiler
+    (``_profiled``, with ``labels``)."""
     from repro_torch.launch import serve
     from repro_torch.serve.engine import Engine
-    eng = Engine(params, cfg, batch=LM["batch"], n_slots=LM["slots"],
-                 prefill_len=LM["prefill_len"], device=CARD)
-    for r in serve.make_requests(LM["batch"], cfg.vocab_size,
-                                 lo=LM["prompt"][0], hi=LM["prompt"][1],
-                                 max_new=LM["max_new"]):
+    eng = Engine(params, cfg, batch=cell["batch"], n_slots=cell["slots"],
+                 prefill_len=cell["prefill_len"], device=CARD)
+    for r in serve.make_requests(cell["batch"], cfg.vocab_size,
+                                 lo=cell["prompt"][0], hi=cell["prompt"][1],
+                                 max_new=cell["max_new"]):
         eng.submit(r)
     for _ in range(3 + steps):       # the prefills, then warm decode steps
         eng.step()
     out = {"steps": steps, "step_ms_unprofiled": eng.step_ms[-steps:]}
-    out.update(_profiled(eng.step, steps))
+    out.update(_profiled(eng.step, steps, labels))
     log(f"decode profile: {out}")
     return out
 
 
-def lm_card_vs_cpu() -> dict:
-    """internlm2-1.8b at full width, depth 2, fp32, weights made once on
+def lm_card_vs_cpu(cell: dict = LM, c: dict = LM_CHECK) -> dict:
+    """An LM cell's config (internlm2-1.8b; qwen3-moe-30b-a3b for phase
+    13) at full width, depth ``c["layers"]``, fp32, weights made once on
     the CPU and copied to the card: the prefill and decode logits agree
-    within TOL_LM x max|logit| and the engine's tokens are identical."""
+    within TOL_LM x max|logit| and the engine's tokens are identical; for
+    an MoE, every layer's experts and slots (so its dropped set) at the
+    prefill are equal."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -1879,20 +1995,21 @@ def lm_card_vs_cpu() -> dict:
     from repro_torch.models.transformer import decoder_prefill_with_cache
     from repro_torch.serve.engine import Engine
     from repro_torch.tree import tree_map
-    c = LM_CHECK
-    cfg = get_config(LM["arch"]).with_(n_layers=c["layers"], dtype="float32",
-                                       use_flash_kernel=True)
+    cfg = get_config(cell["arch"]).with_(n_layers=c["layers"],
+                                         dtype="float32",
+                                         use_flash_kernel=True)
     cpu = serve.build_params(cfg, device="cpu")
     card = tree_map(lambda t: t.to(CARD), cpu)
     reqs = lambda: serve.make_requests(c["requests"], cfg.vocab_size,
-                                       lo=LM["prompt"][0], hi=LM["prompt"][1],
+                                       lo=cell["prompt"][0],
+                                       hi=cell["prompt"][1],
                                        max_new=c["max_new"])
-    P = LM["prefill_len"]
+    P = cell["prefill_len"]
     toks = torch.from_numpy(_engine_prompts(reqs(), P))
-    runs = {}
+    runs, routes = {}, {}
     ops.reset_launches()
     for dev, p in ((CARD, card), ("cpu", cpu)):
-        with torch.no_grad():
+        with torch.no_grad(), _recorded_routes(routes.setdefault(dev, [])):
             lg, cache = decoder_prefill_with_cache(p, cfg, toks.to(dev),
                                                    c["slots"])
             logits = [lg.cpu()]
@@ -1905,13 +2022,23 @@ def lm_card_vs_cpu() -> dict:
     direct = dict(ops.LAUNCHES)
     _require(direct["flash_attention"] == cfg.n_layers and
              direct["decode_attention"] == cfg.n_layers * c["steps"], direct)
+    L = cfg.n_layers
+    routing = []
     rel = []
-    for got, want in zip(runs[CARD], runs["cpu"]):
+    for i, (got, want) in enumerate(zip(runs[CARD], runs["cpu"])):
+        if cfg.n_experts:       # the routes that fed call i, layer by layer
+            routing.append(_same_routes(
+                cfg, routes[CARD][i * L:(i + 1) * L],
+                routes["cpu"][i * L:(i + 1) * L],
+                "prefill" if i == 0 else f"decode step {i - 1}"))
         _require(bool(torch.isfinite(got).all()), "card logits not finite")
         _require(torch.equal(torch.argmax(got, -1), torch.argmax(want, -1)),
                  "card and cpu disagree on a greedy token")
         rel.append(float((got - want).abs().max() / want.abs().max()))
     log(f"depth-2 card vs cpu logits, max|d| / max|logit| per step: {rel}")
+    if routing:
+        log(f"depth-2 card vs cpu moe routes, the same in every call and "
+            f"layer: {routing}")
     _require(max(rel) <= TOL_LM, rel)
     # the card's kernels against the reference's plain _sdpa sites (the
     # switch off, so the CPU runs _sdpa): prefill and the first decode step
@@ -1919,11 +2046,11 @@ def lm_card_vs_cpu() -> dict:
         plain = cfg.with_(use_flash_kernel=False)
         lg, cache = decoder_prefill_with_cache(cpu, plain, toks, c["slots"])
         lg2, _ = M.decode(cpu, plain, torch.argmax(lg, -1), cache, P)
-    routing = [float((a - b).abs().max() / b.abs().max())
-               for a, b in zip(runs[CARD][:2], (lg, lg2))]
+    sites = [float((a - b).abs().max() / b.abs().max())
+             for a, b in zip(runs[CARD][:2], (lg, lg2))]
     log(f"depth-2, the card's kernels vs the plain _sdpa sites on the cpu, "
-        f"max|d| / max|logit| (prefill, decode): {routing}")
-    _require(max(routing) <= TOL_LM, routing)
+        f"max|d| / max|logit| (prefill, decode): {sites}")
+    _require(max(sites) <= TOL_LM, sites)
     gens = {}
     for dev, p in ((CARD, card), ("cpu", cpu)):
         eng = Engine(p, cfg, batch=c["requests"], n_slots=c["slots"],
@@ -1945,10 +2072,118 @@ def lm_card_vs_cpu() -> dict:
     log(f"depth-2 engines: identical tokens ({gens['cpu'][1]}); card "
         f"launches {eng_counts}")
     return {"layers": c["layers"], "logit_rel_err": rel,
-            "max_logit_rel_err": max(rel), "routing_rel_err": routing,
+            "max_logit_rel_err": max(rel), "routing_rel_err": sites,
             "tokens_identical": True,
+            "moe_dropped_per_layer": [r["dropped"] for r in routing],
+            "moe_tokens_with_swapped_order": [
+                r["tokens_with_swapped_order"] for r in routing],
             "stats": gens["cpu"][1].__dict__, "launches": eng_counts,
             "direct_launches": direct}
+
+
+@contextlib.contextmanager
+def _recorded_routes(into: list):
+    """Append every ``ffn.route`` result (a ``Routing``, on the CPU) to
+    ``into`` while the block runs."""
+    from repro_torch.models import ffn
+    real = ffn.route
+
+    def recording(router, cfg, xt):
+        r = real(router, cfg, xt)
+        into.append(type(r)(*(t.cpu() if hasattr(t, "cpu") else t
+                              for t in r)))
+        return r
+    ffn.route = recording
+    try:
+        yield
+    finally:
+        ffn.route = real
+
+
+def _same_routes(cfg, card: list, cpu: list, what: str) -> dict:
+    """The card's and the CPU's routes layer by layer: for every token the
+    same top-1 expert and the same k experts, each with the same slot (so
+    the same dropped set).  The order of a token's other k - 1 experts is
+    not part of the function (an entry's rank in its expert counts earlier
+    tokens only; the combine adds in slot order), and two near-equal
+    probabilities may swap places there: such tokens are counted.  At the
+    first token that differs, the probabilities of the experts in question
+    and the k-th against the (k+1)-th on each device are printed before
+    the run fails: a flip near a tie."""
+    import torch
+    k, E = cfg.experts_per_token, cfg.n_experts
+    _require(len(card) == len(cpu) == cfg.n_layers, (what, len(card),
+                                                     len(cpu)))
+
+    def by_expert(r):
+        order = torch.argsort(r.topi, dim=1)
+        return (torch.gather(r.topi, 1, order),
+                torch.gather(r.slot, 1, order))
+    dropped, swapped = [], 0
+    for layer, (a, b) in enumerate(zip(card, cpu)):
+        (ea, sa), (eb, sb) = by_expert(a), by_expert(b)
+        bad = ((ea != eb) | (sa != sb)).any(1) | (a.topi[:, 0] != b.topi[:, 0])
+        if a.capacity != b.capacity or bool(bad.any()):
+            t = int(bad.nonzero()[0, 0]) if bool(bad.any()) else 0
+            ids = sorted(set(a.topi[t].tolist()) ^ set(b.topi[t].tolist())
+                         | {int(a.topi[t, 0]), int(b.topi[t, 0])})
+            probs = {}
+            for dev, r in (("card", a), ("cpu", b)):
+                top = torch.sort(r.probs[t], descending=True).values
+                probs[dev] = {"experts": {e: float(r.probs[t, e])
+                                          for e in ids},
+                              "k-th, (k+1)-th": [float(top[k - 1]),
+                                                 float(top[k])]}
+            log(f"moe routes differ at {what}, layer {layer}, token {t}: "
+                f"experts {a.topi[t].tolist()} slots {a.slot[t].tolist()} "
+                f"(card) vs {b.topi[t].tolist()} {b.slot[t].tolist()} "
+                f"(cpu), capacity {a.capacity} vs {b.capacity}; "
+                f"probabilities {probs}")
+            _require(False, f"moe routes differ at {what}, layer {layer}")
+        swapped += int((a.topi != b.topi).any(1).sum())
+        dropped.append(int((b.slot == E * b.capacity).sum()))
+    return {"what": what, "capacity": cpu[0].capacity, "dropped": dropped,
+            "tokens_with_swapped_order": swapped}
+
+
+# the record_function ranges phase 13 splits an MoE decode step into
+MOE_RANGES = ("moe routing", "moe dispatch+combine", "moe experts",
+              "attention")
+
+
+@contextlib.contextmanager
+def _moe_ranges():
+    """Wrap the MoE's routing, its dispatch and combine, its expert
+    products and the attention (projections, RoPE, the cache write and
+    the kernel; full-sequence and decode) in ``record_function`` ranges
+    named MOE_RANGES while the block runs."""
+    import types
+    from torch.profiler import record_function
+    from repro_torch.models import attention as attn
+    from repro_torch.models import ffn
+
+    def ranged(name, fn):
+        def wrapped(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return wrapped
+    route, dc, experts, attention = MOE_RANGES
+    saved = {(ffn, "route"): route, (ffn, "_experts"): experts,
+             (attn, "attention"): attention,
+             (attn, "decode_attention"): attention}
+    real = {key: getattr(*key) for key in saved}
+    real_classes = {n: getattr(ffn, n) for n in ("_Gather", "_Sum")}
+    for (mod, name), label in saved.items():
+        setattr(mod, name, ranged(label, real[(mod, name)]))
+    for n, cls in real_classes.items():
+        setattr(ffn, n, types.SimpleNamespace(apply=ranged(dc, cls.apply)))
+    try:
+        yield
+    finally:
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
+        for n, cls in real_classes.items():
+            setattr(ffn, n, cls)
 
 
 def _zamba_cfg(**kw):
@@ -2999,6 +3234,204 @@ def phase_lm_train() -> dict:
     return res
 
 
+def phase_moe_audio() -> dict:
+    """The MoE decoder and the audio encoder (phase 13): (a) the MoE cell
+    through the CLI, ``prefill_step`` and a profiled decode, split by
+    range (``serve_cell``); (b) depth 2 against the CPU; (c) decode
+    against forward; (d) hubert; (e) training."""
+    import torch
+    log(f"=== phase 13: serve {MOE['arch']} at full width and depth ===")
+    res = serve_cell(MOE, MOE_PREFILL, MOE_RANGES)
+    res["check"] = lm_card_vs_cpu(MOE, MOE_CHECK)
+    torch.cuda.empty_cache()
+    res["decode_vs_forward"] = moe_decode_vs_forward()
+    torch.cuda.empty_cache()
+    res["hubert"] = hubert_encoder(res["launches"])
+    torch.cuda.empty_cache()
+    res["train"] = moe_audio_train(res["launches"])
+    return res
+
+
+def moe_decode_vs_forward() -> dict:
+    """The MoE cell's config at depth 2 in fp32 with ``capacity_factor =
+    E / k`` (no entry dropped, so decode and forward route alike), on the
+    card: ``MOE_DECODE_VS_FORWARD["steps"]`` decode steps from an empty
+    cache against the full forward within TOL_DECODE_VS_FORWARD x
+    max|logit|."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    cfg = get_config(MOE["arch"])
+    cfg = cfg.with_(n_layers=MOE_CHECK["layers"], dtype="float32",
+                    use_flash_kernel=True,
+                    capacity_factor=cfg.n_experts / cfg.experts_per_token)
+    B, T = MOE_DECODE_VS_FORWARD["batch"], MOE_DECODE_VS_FORWARD["steps"]
+    params = serve.build_params(cfg, device=CARD, seed=2)
+    toks = torch.from_numpy(np.random.RandomState(2).randint(
+        0, cfg.vocab_size, (B, T)).astype(np.int32)).to(CARD)
+    ops.reset_launches()
+    with torch.no_grad():
+        full, _ = M.logits(params, cfg, {"tokens": toks})
+        cache = M.init_cache(params, cfg, B, T)
+        errs = []
+        for t in range(T):
+            lg, cache = M.decode(params, cfg, toks[:, t], cache, t)
+            errs.append(float((lg - full[:, t]).abs().max()
+                              / full.abs().max()))
+    counts = dict(ops.LAUNCHES)
+    log(f"moe decode vs forward on the card ({T} steps, capacity factor "
+        f"{cfg.capacity_factor}): max|d| / max|logit| {errs} (launches "
+        f"{counts})")
+    _require(counts["flash_attention"] == cfg.n_layers
+             and counts["decode_attention"] == cfg.n_layers * T, counts)
+    _require(max(errs) <= TOL_DECODE_VS_FORWARD, errs)
+    return {"steps": T, "rel_err": errs, "max_rel_err": max(errs)}
+
+
+def hubert_encoder(launches: dict) -> dict:
+    """hubert-xlarge at full width and depth in bf16: ``M.logits`` on
+    HUBERT's frames twice (one non-causal flash launch a layer a call; the
+    second call's wall is the warm one), with the peak memory; then depth
+    2 in fp32, weights made once on the CPU: the card's logits within
+    TOL_LM x max|logit| of the CPU's."""
+    import time
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+    h = HUBERT
+    cfg = get_config(h["arch"])
+    log(f"--- phase 13 (d): {h['arch']} at full width and depth, bf16")
+    params = serve.build_params(cfg, device=CARD)
+    gen = torch.Generator(device=CARD).manual_seed(4)
+    frames = torch.randn((h["batch"], h["frames"], cfg.d_model),
+                         generator=gen, device=CARD).to(torch.bfloat16)
+    walls = []
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    for _ in range(2):                 # the first call also warms cuBLAS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            lg, aux = M.logits(params, cfg, {"frames": frames})
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    counts = dict(ops.LAUNCHES)
+    _require(tuple(lg.shape) == (h["batch"], h["frames"], cfg.vocab_size)
+             and lg.dtype == torch.bfloat16
+             and bool(torch.isfinite(lg).all()) and float(aux) == 0.0,
+             (tuple(lg.shape), lg.dtype))
+    _require(counts["flash_attention"] == 2 * cfg.n_layers
+             and sum(counts.values()) == 2 * cfg.n_layers, counts)
+    for k, v in counts.items():
+        launches[k] += v
+    out = {"B": h["batch"], "S": h["frames"], "ms": walls,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "launches": counts}
+    del params, frames, lg
+    torch.cuda.empty_cache()
+    log(f"hubert logits B={h['batch']} S={h['frames']} ({_smi()}): {walls} "
+        f"ms, peak {out['peak_bytes'] / 2**30:.2f} GiB (launches {counts})")
+
+    cfg = cfg.with_(n_layers=h["check_layers"], dtype="float32")
+    cpu = serve.build_params(cfg, device="cpu")
+    frames = torch.from_numpy(np.random.RandomState(5).randn(
+        h["check_batch"], h["frames"], cfg.d_model).astype(np.float32))
+    with torch.no_grad():
+        want, _ = M.logits(cpu, cfg, {"frames": frames})
+        got, _ = M.logits(tree_map(lambda t: t.to(CARD), cpu), cfg,
+                          {"frames": frames.to(CARD)})
+    rel = float((got.cpu() - want).abs().max() / want.abs().max())
+    log(f"hubert depth {h['check_layers']} fp32, card vs cpu: max|d| / "
+        f"max|logit| {rel}")
+    _require(rel <= TOL_LM, rel)
+    out["check"] = {"layers": h["check_layers"], "B": h["check_batch"],
+                    "logit_rel_err": rel}
+    return out
+
+
+def _frame_batches(cfg, B: int, S: int, n: int, seed: int = 0) -> list:
+    """hubert's frame objective: frames and a label a frame, from numpy."""
+    import torch
+    rng = np.random.RandomState(seed + 200)
+    return [{"frames": torch.from_numpy(rng.randn(B, S, cfg.d_model).astype(
+        np.float32)), "labels": torch.from_numpy(rng.randint(
+            0, cfg.vocab_size, (B, S)).astype(np.int32))} for _ in range(n)]
+
+
+def moe_audio_train(launches: dict) -> dict:
+    """(e) qwen3-moe-30b-a3b at full width and depth 2 in bf16 through
+    ``launch/train.main``: every loss and aux finite, the eval loss falls,
+    no kernel inside the steps (the training route), flash once a layer in
+    each no-grad eval pass; then one AdamW step of each smoke config (the
+    token stream; hubert's frame CE) on the card against the CPU from the
+    same weights (``_held_training``)."""
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import train as train_cli
+    from repro_torch.optim.adam import AdamW
+    from repro_torch.train.loop import make_train_step
+    t = MOE_TRAIN
+    log(f"--- phase 13 (e): train {t['arch']} at full width, depth "
+        f"{t['layers']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "train.json")
+        argv = ["--arch", t["arch"], "--layers", str(t["layers"]),
+                "--steps", str(t["steps"]), "--batch", str(t["batch"]),
+                "--seq", str(t["seq"]), "--log-every", "5", "--device",
+                CARD, "--out", out]
+        rc = train_cli.main(argv)
+        _require(rc == 0, rc)
+        with open(out) as fh:
+            rec = json.load(fh)
+    la = rec["launches"]
+    _require(rec["n_layers"] == t["layers"] and rec["dtype"] == "bfloat16",
+             rec)
+    _require(all(np.isfinite(rec["losses"])) and all(np.isfinite(rec["aux"]))
+             and rec["improved"] and rec["eval_after"] < rec["eval_before"],
+             rec)
+    _require(la["eval_before"]["flash_attention"] == t["layers"]
+             and la["eval_after"]["flash_attention"] == t["layers"], la)
+    _require(all(v == 0 for v in la["steps"].values()),
+             f"kernels launched inside the steps: {la['steps']}")
+    for part in la.values():
+        for k, v in part.items():
+            launches[k] += v
+    warm = rec["step_s"][1:]
+    res = {"full": {
+        "arch": t["arch"], "layers": t["layers"], "batch": t["batch"],
+        "seq": t["seq"], "losses": rec["losses"], "aux": rec["aux"],
+        "eval_before": rec["eval_before"], "eval_after": rec["eval_after"],
+        "step_ms": [x * 1e3 for x in rec["step_s"]],
+        "step_ms_p50": float(np.median(warm)) * 1e3,
+        "tokens_per_s": t["batch"] * t["seq"] / float(np.median(warm)),
+        "peak_bytes": rec["peak_bytes"], "launches": la}}
+    f = res["full"]
+    log(f"train {t['arch']} x{t['layers']} layers (bf16; {_smi()}): step "
+        f"{f['step_ms_p50']:.1f} ms p50 after the first "
+        f"({f['step_ms'][0]:.1f}), peak "
+        f"{(f['peak_bytes'] or 0) / 2**30:.2f} GiB; eval "
+        f"{rec['eval_before']:.4f} -> {rec['eval_after']:.4f}; aux "
+        f"{rec['aux'][0]:.4f} -> {rec['aux'][-1]:.4f}")
+    torch.cuda.empty_cache()
+    res["smoke"] = {}
+    for arch in MOE_TRAIN_SMOKES:
+        cfg = get_smoke(arch)
+        batches = (_frame_batches(cfg, 4, 64, 1) if cfg.family == "audio"
+                   else _lm_batches(cfg, 4, 64, 1))
+        fns = make_train_step(cfg, AdamW())
+        params, state = fns.init(torch.Generator().manual_seed(0))
+        card = _train_run(fns, params, state, batches, CARD)
+        _require(all(v == 0 for v in card[3].values()), (arch, card[3]))
+        cpu = _train_run(fns, params, state, batches, "cpu")
+        res["smoke"][arch] = _held_training(f"{arch} smoke", cfg, card, cpu)
+    return res
+
+
 def _smi() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -3064,6 +3497,8 @@ def main(argv=None) -> int:
     done("runtime")
     lm_train = phase_lm_train()
     done("lm_train")
+    moe_audio = phase_moe_audio()
+    done("moe_audio")
 
     csrc = "src/repro_torch/kernels/csrc/"
     srcs = {"lane_mlp_fwd": ("lane_mlp_fwd.cu", "lane_mlp.py:57"),
@@ -3085,7 +3520,8 @@ def main(argv=None) -> int:
                     + comparison["launches"][name]
                     + experiments["launches"][name]
                     + runtime["launches"][name]
-                    + lm_train["launches"][name])
+                    + lm_train["launches"][name]
+                    + moe_audio["launches"][name])
         _require(launches > 0, f"{name} never launched on its path")
         kernels.append({
             "name": name, "route": "cuda", "source": csrc + srcs[name][0],
@@ -3150,6 +3586,23 @@ def main(argv=None) -> int:
             | {f"{a} card vs cpu": {k: r[k] for k in (
                 "loss_rel_err", "param_l2_rel_err", "eval_rel_err")}
                for a, r in lm_train["check"].items()}))
+    ma = moe_audio
+    log(f"moe_audio ({MOE['arch']}, bf16, {MOE['requests']} requests; "
+        f"{HUBERT['arch']}, bf16; {smi}): " + json.dumps(
+            {k: ma["serve"][k] for k in ("tokens_per_s", "step_ms_p50",
+                                         "step_ms_p99", "prefill_ms_p50",
+                                         "peak_bytes")}
+            | {"init_s": ma["init_s"],
+               "prefill_step_ms": ma["prefill_step"]["ms"],
+               "decode_busy_share": ma["decode_profile"]["device_busy_share"],
+               "decode_ms_by_range": ma["decode_profile"][
+                   "device_ms_per_call_by_range"],
+               "card_vs_cpu": ma["check"]["max_logit_rel_err"],
+               "decode_vs_forward": ma["decode_vs_forward"]["max_rel_err"],
+               "hubert_ms": ma["hubert"]["ms"],
+               "hubert_card_vs_cpu": ma["hubert"]["check"]["logit_rel_err"],
+               "train_step_ms_p50": ma["train"]["full"]["step_ms_p50"],
+               "train_peak_bytes": ma["train"]["full"]["peak_bytes"]}))
     log("details: " + json.dumps({"timing": timing, "serve": serve,
                                   "train": train, "train_time": train_time,
                                   "turns": turns, "g3_limit": limit,
@@ -3157,6 +3610,7 @@ def main(argv=None) -> int:
                                   "comparison": comparison,
                                   "experiments": experiments,
                                   "runtime": runtime, "lm_train": lm_train,
+                                  "moe_audio": moe_audio,
                                   "elapsed_s": elapsed,
                                   "wrappers": wrappers,
                                   "torch": torch.__version__,

@@ -1,6 +1,9 @@
 """Model configs: ``get_config(arch_id)`` / ``get_smoke(arch_id)`` for the
-dense decoders and the zamba2 hybrid the port serves, and the tabular
-APC-VFL protocol's hyperparameters (``apcvfl_paper``)."""
+families the port has (the dense decoders, the MoE decoders, the
+encoder-only audio transformer and the zamba2 hybrid), and the tabular
+APC-VFL protocol's hyperparameters (``apcvfl_paper``).  The VLM and xLSTM
+configs raise ``NotImplementedError`` until their slices (ROADMAP.md,
+Queue 1 item 9)."""
 from __future__ import annotations
 
 import importlib
@@ -22,10 +25,11 @@ ARCH_IDS = [
     "kimi-k2-1t-a32b",
     "apcvfl-paper",
 ]
-# the configs ported so far (the dense decoders and the zamba2 hybrid); the
-# other families come later
+# the configs ported so far: the dense decoders, the zamba2 hybrid, the MoE
+# decoders and the audio encoder; the VLM and xLSTM come later
 PORTED = ("internlm2-1.8b", "internlm2-20b", "yi-6b", "nemotron-4-15b",
-          "zamba2-2.7b")
+          "zamba2-2.7b", "qwen3-moe-30b-a3b", "kimi-k2-1t-a32b",
+          "hubert-xlarge")
 
 
 def _mod(arch: str):
@@ -33,8 +37,8 @@ def _mod(arch: str):
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     if arch not in PORTED:
         raise NotImplementedError(
-            f"{arch} is not ported yet (ROADMAP.md, Queue 1); the port has "
-            f"{', '.join(PORTED)}")
+            f"{arch} is not ported yet (ROADMAP.md, Queue 1 item 9); the "
+            f"port has {', '.join(PORTED)}")
     return importlib.import_module(
         "repro_torch.configs." + arch.replace("-", "_").replace(".", "_"))
 

@@ -1,11 +1,22 @@
-"""Serve a dense decoder through the continuous-batching engine with the
-PyTorch/CUDA port: random weights from a seeded ``torch.Generator``,
-seeded requests, greedy decode.
+"""Serve a dense or MoE decoder through the continuous-batching engine
+with the PyTorch/CUDA port: random weights from a seeded
+``torch.Generator``, seeded requests, greedy decode.
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+      PYTHONPATH=src python -m repro_torch.launch.serve \
+          --arch qwen3-moe-30b-a3b --device cpu        # the MoE smoke
       PYTHONPATH=src python -m repro_torch.launch.serve --no-smoke \
           --batch 8 --slots 1024 --prefill-len 128 --requests 32 \
           --prompt-len 16 128 --max-new 64 --out /tmp/lm.json
+      PYTHONPATH=src python -m repro_torch.launch.serve --no-smoke \
+          --arch qwen3-moe-30b-a3b --batch 8 --slots 1024 \
+          --prefill-len 128 --requests 16 --prompt-len 16 128 \
+          --max-new 32                         # the card: 56.9 GiB in bf16
+
+The engine serves the families with a KV cache, dense and MoE
+(``kimi-k2-1t-a32b`` only as ``--smoke``: 1.04e12 params fit no card);
+``--arch hubert-xlarge`` and the zamba2 hybrid are refused before any
+weight is made, with the reference engine's reason.
 
 The flags are the reference CLI's (``repro.launch.serve``) plus
 ``--device`` (default ``cuda``; a host without a card refuses it),
@@ -35,7 +46,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.models import model as M
-from repro_torch.serve.engine import Engine, Request
+from repro_torch.serve.engine import Engine, Request, require_kv_cache_family
 from repro_torch.sharding.policy import init_params
 
 
@@ -55,7 +66,10 @@ def make_requests(n: int, vocab: int, *, lo: int, hi: int, max_new: int,
 
 def build_params(cfg, *, seed: int = 0, device="cuda"):
     """Random params for ``cfg`` in ``cfg.dtype`` on ``device``, from a
-    ``torch.Generator`` on that device seeded with ``seed``."""
+    ``torch.Generator`` on that device seeded with ``seed``; leaves whose
+    fp32 draw would pass ``policy.SLICE_ELEMENTS`` are drawn in slices, so
+    the full qwen3-moe-30b-a3b (56.9 GiB in bf16) is made on one 80 GB
+    card."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return init_params(M.schema(cfg), gen, cfg.dtype, device=dev)
@@ -68,7 +82,7 @@ def _percentile(xs, q):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        description="serve a dense decoder (PyTorch port)")
+        description="serve a dense or MoE decoder (PyTorch port)")
     ap.add_argument("--arch", default="internlm2-1.8b")
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
                     default=True,
@@ -89,6 +103,10 @@ def main(argv=None) -> int:
 
     dev = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    try:
+        require_kv_cache_family(cfg)
+    except ValueError as e:
+        raise SystemExit(f"serve: {e}") from None
     cfg = cfg.with_(use_flash_kernel=True)
     params = build_params(cfg, device=dev)
     eng = Engine(params, cfg, batch=args.batch, n_slots=args.slots,

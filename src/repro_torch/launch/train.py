@@ -7,6 +7,13 @@ Run:  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu
           --smoke --steps 30 --batch 4 --seq 64 --device cpu
       PYTHONPATH=src python -m repro_torch.launch.train \
           --arch internlm2-1.8b --steps 20 --batch 8 --seq 128   # the card
+      PYTHONPATH=src python -m repro_torch.launch.train \
+          --arch qwen3-moe-30b-a3b --layers 2 --steps 20   # full width
+
+``--layers N`` cuts the config's depth (a model of 30.5 B params does not
+train with AdamW on one 80 GB card).  ``--arch hubert-xlarge`` is refused
+with the reference's message: the audio encoder trains on the frame
+objective (``train.loop.task_loss``), not the token stream.
 
 Params are drawn in ``cfg.dtype`` from a ``torch.Generator`` seeded 0 on
 the device.  The optimizer steps (``train.loop.make_train_step``, AdamW)
@@ -19,9 +26,9 @@ batch-to-batch noise of the stream.  The last line is the reference's JSON
 (``first_loss``, ``last_loss``, ``eval_before``, ``eval_after``,
 ``improved``); the line before names the device.  ``--ckpt PATH`` saves
 ``{"params": ...}`` in the reference's flat ``.npz`` + ``.json`` format
-(``checkpoint/ckpt.py``); ``--out PATH`` writes every step's loss and
-host-clock time, the peak device memory and the kernel launches of the
-eval passes and of the steps as JSON.
+(``checkpoint/ckpt.py``); ``--out PATH`` writes every step's loss, MoE
+aux and host-clock time, the peak device memory and the kernel launches
+of the eval passes and of the steps as JSON.
 """
 from __future__ import annotations
 
@@ -47,6 +54,8 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="internlm2-1.8b")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-sized)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the config to this many layers (0: keep)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -62,6 +71,11 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family == "audio":
+        raise SystemExit("use launch/train for LM families; hubert trains "
+                         "via the masked-frame objective in tests/examples")
+    if args.layers:
+        cfg = cfg.with_(n_layers=args.layers)
     fns = make_train_step(cfg, AdamW(lr=args.lr))
     params, opt = fns.init(torch.Generator(device=device).manual_seed(0))
     on_card = device.type == "cuda"
@@ -82,7 +96,7 @@ def main(argv=None) -> int:
     loss_before = eval_loss(eval_b)
     launches = {"eval_before": dict(ops.LAUNCHES)}
 
-    losses, step_s = [], []
+    losses, auxes, step_s = [], [], []
     ops.reset_launches()
     t0 = time.perf_counter()
     for i, batch in enumerate(batches(cfg.vocab_size, args.batch, args.seq,
@@ -92,6 +106,7 @@ def main(argv=None) -> int:
                                         full_batch(batch["tokens"]))
         losses.append(float(metrics["loss"]))      # the step's host sync
         step_s.append(time.perf_counter() - ts)
+        auxes.append(float(metrics["aux"]))
         if i % args.log_every == 0 or i == args.steps - 1:
             print(f"step {i:4d} loss {losses[-1]:.4f} "
                   f"ce {float(metrics['ce']):.4f} "
@@ -113,8 +128,9 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(dict(result, arch=cfg.name, smoke=args.smoke,
+                           n_layers=cfg.n_layers, dtype=cfg.dtype,
                            batch=args.batch, seq=args.seq, losses=losses,
-                           step_s=step_s, launches=launches,
+                           aux=auxes, step_s=step_s, launches=launches,
                            device={"type": device.type, "name": name},
                            peak_bytes=(torch.cuda.max_memory_allocated(
                                device) if on_card else None)), fh)

@@ -63,7 +63,8 @@ def zamba_hidden(params: dict, cfg: ModelConfig, inputs: dict):
     for group in _mamba_groups(params, cfg):
         for lp in group:
             x = mamba2.mamba_block(lp, cfg, x)
-        x = block_fwd(params["shared"], cfg, x, positions, cfg.sliding_window)
+        x, _ = block_fwd(params["shared"], cfg, x, positions,
+                         cfg.sliding_window)
     x = norm_apply(params["ln_f"], x, cfg.norm)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 

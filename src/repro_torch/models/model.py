@@ -1,15 +1,16 @@
 """Model dispatch: one entry point per family (a copy of
-``repro.models.model``).  The port has the dense decoder and the zamba2
-hybrid; the other families raise ``NotImplementedError`` until their
-slice (ROADMAP.md, Queue 1).
+``repro.models.model``).  The port has the dense and MoE decoders, the
+encoder-only audio stack and the zamba2 hybrid; the VLM and xLSTM raise
+``NotImplementedError`` until their slices (ROADMAP.md, Queue 1 item 9).
 
 Public surface:
   schema(cfg)                      -> ParamDef tree
   hidden(params, cfg, inputs)      -> (B,S,d) final hidden states, moe aux
   logits(params, cfg, inputs)      -> (B,S,V) logits, moe aux
+  supports_decode(cfg)             -> False for the encoder-only audio stack
   init_cache(params, cfg, batch, n_slots) -> decode cache
   decode(params, cfg, token, cache, pos, window) -> (logits (B,V), cache)
-  count_params_analytic
+  count_params_analytic / count_active_params
 """
 from __future__ import annotations
 
@@ -19,18 +20,18 @@ from repro_torch.sharding.policy import DTYPES, leaves, param_count
 
 
 def _check(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "hybrid"):
+    if cfg.family not in ("dense", "moe", "audio", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
-            f"has the dense decoder and the zamba2 hybrid (ROADMAP.md, "
-            f"Queue 1)")
+            f"has the dense and MoE decoders, the audio encoder and the "
+            f"zamba2 hybrid (ROADMAP.md, Queue 1 item 9)")
 
 
 def schema(cfg: ModelConfig):
     _check(cfg)
     if cfg.family == "hybrid":
         return hybrid.schema_zamba(cfg)
-    return transformer.schema_decoder(cfg)
+    return transformer.schema_decoder(cfg)   # dense | moe | audio
 
 
 def hidden(params, cfg: ModelConfig, inputs: dict):
@@ -47,9 +48,15 @@ def logits(params, cfg: ModelConfig, inputs: dict):
     return transformer.decoder_logits(params, cfg, inputs)
 
 
+def supports_decode(cfg: ModelConfig) -> bool:
+    return cfg.family != "audio"
+
+
 def init_cache(params, cfg: ModelConfig, batch: int, n_slots: int):
-    """The decode cache in ``cfg.dtype``, on the device of ``params``."""
+    """The decode cache in ``cfg.dtype``, on the device of ``params``; the
+    audio encoder has none (``supports_decode``)."""
     _check(cfg)
+    transformer.require_decode(cfg)
     device = leaves(params)[0].device
     dtype = DTYPES[cfg.dtype]
     if cfg.family == "hybrid":
@@ -68,3 +75,13 @@ def decode(params, cfg: ModelConfig, token, cache, pos, window: int = 0):
 
 def count_params_analytic(cfg: ModelConfig) -> int:
     return param_count(schema(cfg))
+
+
+def count_active_params(cfg: ModelConfig) -> int:
+    """Active params per token (MoE: only top-k experts count)."""
+    total = count_params_analytic(cfg)
+    if cfg.n_experts == 0:
+        return total
+    bank = 3 * cfg.n_experts * cfg.d_model * cfg.d_ff * cfg.n_layers
+    active = bank * cfg.experts_per_token // cfg.n_experts
+    return total - bank + active

@@ -1,11 +1,19 @@
-"""The dense decoder stack (a copy of the dense half of
-``repro.models.transformer``; the MoE, VLM and audio stacks come with
-their families, ROADMAP Queue 1).
+"""The decoder stack: dense and MoE decoders and the bidirectional
+encoder-only (audio) stack (a copy of those halves of
+``repro.models.transformer``; the VLM's cross-attention groups come with
+its slice, ROADMAP Queue 1 item 9).
 
 Params keep the reference's stacked ``(L, ...)`` leaves and ``(d_in,
 d_out)`` weight layout, so a JAX parameter tree crosses with
 ``convert.to_torch``; a Python loop over the layers takes the place of
-``lax.scan``.
+``lax.scan``, and the MoE aux loss is summed over the layers in layer
+order from an fp32 zero, as the scan's carry.
+
+Audio (``cfg.family == "audio"``, hubert) takes pre-embedded frames
+``inputs["frames"]`` (B, S, d_model) and has no token table and no decode.
+Its attention is bidirectional: on the card the flash kernel with
+``causal=False``; on the CPU ``_sdpa`` with a zero bias, as the
+reference (whose flash path needs ``cfg.causal``).
 """
 from __future__ import annotations
 
@@ -19,13 +27,25 @@ from repro_torch.models.common import (causal_mask, embed, norm_apply, rope,
                                        schema_embed, schema_norm, unembed)
 from repro_torch.sharding.policy import DTYPES, stack
 
+# the families whose slices are still to come (ROADMAP.md, Queue 1 item 9)
+_LATER = {"vlm": "the VLM's slice (cross-attention, VLMCache)",
+          "ssm": "the xLSTM slice (models/xlstm.py)"}
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.n_experts > 0:
+
+def _ported(cfg: ModelConfig) -> None:
+    if cfg.family in _LATER:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (experts: {cfg.n_experts}) "
-            f"is not ported yet; the port has the dense decoder (ROADMAP.md, "
-            f"Queue 1)")
+            f"{cfg.name}: family {cfg.family!r} is not ported yet; it comes "
+            f"with {_LATER[cfg.family]} (ROADMAP.md, Queue 1 item 9)")
+
+
+def require_decode(cfg: ModelConfig) -> None:
+    """Refuse a family without a decode: the audio encoder (the
+    reference's ``supports_decode``)."""
+    _ported(cfg)
+    if cfg.family == "audio":
+        raise ValueError(f"{cfg.name}: family 'audio' is encoder-only and "
+                         f"has no decode (supports_decode is False)")
 
 
 def _layers(blocks: dict, n: int) -> list:
@@ -37,25 +57,43 @@ def _layers(blocks: dict, n: int) -> list:
 
 
 # ---------------------------------------------------------------------------
-# one decoder block (self-attn + mlp)
+# one decoder block (self-attn + mlp/moe)
 # ---------------------------------------------------------------------------
 
-def schema_block(cfg: ModelConfig) -> dict:
+def schema_block(cfg: ModelConfig, moe: bool = False) -> dict:
     return {
         "ln1": schema_norm(cfg.d_model, cfg.norm),
         "attn": attn.schema_attention(cfg),
         "ln2": schema_norm(cfg.d_model, cfg.norm),
-        "mlp": ffn_mod.schema_ffn(cfg),
+        "mlp": ffn_mod.schema_moe(cfg) if moe else ffn_mod.schema_ffn(cfg),
     }
 
 
+def _is_moe(cfg: ModelConfig) -> bool:
+    return cfg.n_experts > 0
+
+
+def _mlp(p: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """The block's MLP without the MoE aux (decode and the cache prefill
+    drop it, as the reference)."""
+    if _is_moe(cfg):
+        return ffn_mod.moe(p, cfg, h)[0]
+    return ffn_mod.ffn(p, cfg, h)
+
+
 def block_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor,
-              positions: torch.Tensor, window: int) -> torch.Tensor:
+              positions: torch.Tensor, window: int):
+    """-> (x, the MoE aux of this block: 0.0 for a dense MLP)."""
     h = norm_apply(p["ln1"], x, cfg.norm)
     x = x + attn.attention(p["attn"], cfg, h, positions=positions,
                            window=window)
     h = norm_apply(p["ln2"], x, cfg.norm)
-    return x + ffn_mod.ffn(p["mlp"], cfg, h)
+    if _is_moe(cfg):
+        y, aux = ffn_mod.moe(p["mlp"], cfg, h)
+    else:
+        y = ffn_mod.ffn(p["mlp"], cfg, h)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, aux
 
 
 def block_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -64,20 +102,23 @@ def block_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     a, cache = attn.decode_attention(p["attn"], cfg, h, cache, pos, window)
     x = x + a
     h = norm_apply(p["ln2"], x, cfg.norm)
-    return x + ffn_mod.ffn(p["mlp"], cfg, h), cache
+    return x + _mlp(p["mlp"], cfg, h), cache
 
 
 # ---------------------------------------------------------------------------
-# dense decoder stack
+# dense / MoE decoder (and bidirectional encoder) stack
 # ---------------------------------------------------------------------------
 
 def schema_decoder(cfg: ModelConfig) -> dict:
-    _dense_only(cfg)
-    return {
+    _ported(cfg)
+    s = {
         "embed": schema_embed(cfg.vocab_size, cfg.d_model),
-        "blocks": stack(schema_block(cfg), cfg.n_layers),
+        "blocks": stack(schema_block(cfg, moe=_is_moe(cfg)), cfg.n_layers),
         "ln_f": schema_norm(cfg.d_model, cfg.norm),
     }
+    if cfg.family == "audio":   # frames arrive pre-embedded; no token table
+        s["embed"] = {"out": s["embed"]["out"]}
+    return s
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:
@@ -85,16 +126,23 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 
 
 def decoder_hidden(params: dict, cfg: ModelConfig, inputs: dict):
-    """Token inputs -> (final hidden states (B, S, d), MoE aux 0.0)."""
-    _dense_only(cfg)
-    tokens = inputs["tokens"]
-    B, S = tokens.shape
-    x = embed(params["embed"], tokens).to(DTYPES[cfg.dtype])
+    """Token (or pre-embedded frame) inputs -> (final hidden states
+    (B, S, d), the MoE aux summed over the layers: 0.0 without experts)."""
+    _ported(cfg)
+    if cfg.family == "audio":
+        x = inputs["frames"].to(DTYPES[cfg.dtype])
+        B, S = x.shape[0], x.shape[1]
+    else:
+        tokens = inputs["tokens"]
+        B, S = tokens.shape
+        x = embed(params["embed"], tokens).to(DTYPES[cfg.dtype])
     positions = _positions(B, S, x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _layers(params["blocks"], cfg.n_layers):
-        x = block_fwd(lp, cfg, x, positions, cfg.sliding_window)
+        x, a = block_fwd(lp, cfg, x, positions, cfg.sliding_window)
+        aux = aux + a
     x = norm_apply(params["ln_f"], x, cfg.norm)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def decoder_logits(params: dict, cfg: ModelConfig, inputs: dict):
@@ -125,7 +173,7 @@ def block_fwd_cache(p: dict, cfg: ModelConfig, x: torch.Tensor,
                        causal_mask(S, window, device=x.device))
     x = x + o.reshape(B, S, H * hd) @ p["attn"]["wo"]
     h = norm_apply(p["ln2"], x, cfg.norm)
-    return x + ffn_mod.ffn(p["mlp"], cfg, h), (k, v)
+    return x + _mlp(p["mlp"], cfg, h), (k, v)
 
 
 def decoder_prefill_with_cache(params: dict, cfg: ModelConfig,
@@ -134,7 +182,7 @@ def decoder_prefill_with_cache(params: dict, cfg: ModelConfig,
     tokens: (B, S) with S <= n_slots.  Returns (last_logits (B, V),
     KVCache stacked over layers: k/v (L, B, n_slots, K, hd), slot_pos
     (L, n_slots)), a new cache of its own."""
-    _dense_only(cfg)
+    require_decode(cfg)
     B, S = tokens.shape
     if S > n_slots:
         raise ValueError(f"prompt of {S} tokens exceeds {n_slots} slots")
@@ -173,7 +221,7 @@ def decoder_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
                    cache: attn.KVCache, pos: int, window: int):
     """token: (B,) int -> (logits (B, vocab), cache), the cache updated in
     place (one new row per layer at ``pos``)."""
-    _dense_only(cfg)
+    require_decode(cfg)
     x = embed(params["embed"], token[:, None]).to(DTYPES[cfg.dtype])
     pos = int(pos)
     L = cfg.n_layers

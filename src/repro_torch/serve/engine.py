@@ -50,15 +50,22 @@ class EngineStats:
     tokens_out: int = 0
 
 
+def require_kv_cache_family(cfg: ModelConfig) -> None:
+    """The engine serves the KV-cache families, dense and MoE (the
+    reference's assertion, with its words)."""
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"{cfg.name}: engine supports KV-cache families; "
+                         f"SSM/hybrid use decode() (family {cfg.family!r})")
+
+
 class Engine:
-    """Greedy continuous-batching engine for the dense decoder family."""
+    """Greedy continuous-batching engine for the dense and MoE decoder
+    families."""
 
     def __init__(self, params, cfg: ModelConfig, *, batch: int,
                  n_slots: int, eos_id: Optional[int] = None,
                  prefill_len: int = 32, device="cuda"):
-        if cfg.family != "dense":
-            raise ValueError("engine supports KV-cache families; SSM/hybrid "
-                             "use decode()")
+        require_kv_cache_family(cfg)
         self.device = resolve_device(device)
         self.params = tree_map(lambda t: t.to(self.device), params)
         self.cfg = cfg

@@ -1,7 +1,9 @@
-"""Training step factory for the LM families the port has (the dense
-decoders and the zamba2 hybrid): LM cross-entropy and the paper's
-``apcvfl_distill`` composite objective (Eq. 5) scaled to a sequence
-backbone.  The port of ``repro.train.loop``.
+"""Training step factory for the LM families the port has (the dense and
+MoE decoders, the zamba2 hybrid and the encoder-only audio stack): LM
+cross-entropy (all decoder families), frame cross-entropy (audio), and
+the paper's ``apcvfl_distill`` composite objective (Eq. 5) scaled to a
+sequence backbone.  The port of ``repro.train.loop``.  Both objectives
+add the MoE aux term, ``cfg.router_aux_weight * aux``.
 
 The APC-VFL objective treats the backbone as the student encoder g3: its
 mean-pooled final hidden state is the representation z = g3(x).  The batch
@@ -40,10 +42,14 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def task_loss(params, cfg: ModelConfig, batch: dict):
-    """Next-token cross-entropy (plus the MoE aux term, 0 for the families
-    the port has): ``(loss, {"ce", "aux"})``."""
+    """Next-token cross-entropy (audio: each frame's CE against
+    ``batch["labels"]``, no shift) plus the MoE aux term (0.0 without
+    experts): ``(loss, {"ce", "aux"})``."""
     lg, aux = M.logits(params, cfg, batch)
-    ce = cross_entropy(lg[:, :-1], batch["tokens"][:, 1:])
+    if cfg.family == "audio":
+        ce = cross_entropy(lg, batch["labels"])
+    else:  # causal LM: next-token prediction
+        ce = cross_entropy(lg[:, :-1], batch["tokens"][:, 1:])
     loss = ce + cfg.router_aux_weight * aux
     return loss, {"ce": ce, "aux": aux}
 

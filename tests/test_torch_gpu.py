@@ -1417,7 +1417,8 @@ def test_runtime_two_tenant_dispatch_parity_bit_identical_on_card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "zamba2-2.7b",
+                                  "qwen3-moe-30b-a3b"])
 def test_smoke_train_step_card_against_cpu(arch):
     """One AdamW step of the smoke config on the card against the CPU from
     the same weights: loss and grad norm within 1e-5 relative, each param
@@ -1454,3 +1455,89 @@ def test_smoke_train_step_card_against_cpu(arch):
     assert abs(eg - ec) <= 1e-5 * abs(ec)
     assert lg["flash_attention"] > 0
     assert (lg["ssd_intra_chunk"] > 0) == (cfg.family == "hybrid")
+
+
+def _moe_case(seed, B, S, dtype=torch.float32, cf=1.25):
+    """The qwen3 smoke's MoE block: params and x from a numpy seed."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import ffn
+    cfg = get_smoke("qwen3-moe-30b-a3b").with_(capacity_factor=cf)
+    rng = np.random.RandomState(seed)
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    p = {"router": _randn(rng, d, E, scale=d ** -0.5),
+         "w_gate": _randn(rng, E, d, f, scale=d ** -0.5).to(dtype),
+         "w_up": _randn(rng, E, d, f, scale=d ** -0.5).to(dtype),
+         "w_down": _randn(rng, E, f, d, scale=f ** -0.5).to(dtype)}
+    return ffn, cfg, p, _randn(rng, B, S, d).to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cf", [1.0, 1.25, 2.0])
+def test_moe_card_against_cpu(cf):
+    """The MoE at the qwen3 smoke's widths (E 4, k 2), card against CPU:
+    the same experts, slots and dropped set, y within 1e-5 x max|y|, aux
+    within 1e-6, and the gradients within 1e-5 of each one's max."""
+    dev = _card()
+    ffn, cfg, p, x = _moe_case(20, 4, 33, cf=cf)
+    out = {}
+    for d in ("cpu", dev):
+        pd = {k: v.to(d).clone().requires_grad_() for k, v in p.items()}
+        xd = x.to(d).clone().requires_grad_()
+        r = ffn.route(pd["router"], cfg, xd.reshape(-1, cfg.d_model))
+        y, aux = ffn.moe(pd, cfg, xd)
+        (y.square().sum() + aux).backward()
+        out[str(d)] = (r, y, aux, [xd.grad] + [pd[k].grad for k in
+                                                sorted(pd)])
+    (rc, yc, ac, gc), (rg, yg, ag, gg) = out["cpu"], out[str(dev)]
+    assert torch.equal(rg.topi.cpu(), rc.topi)
+    assert torch.equal(rg.slot.cpu(), rc.slot)
+    yc = yc.detach()
+    assert _maxerr(yg.detach().cpu(), yc) <= 1e-5 * float(yc.abs().max())
+    assert abs(float(ag.detach()) - float(ac.detach())) <= 1e-6
+    for a, b in zip(gg, gc):
+        assert _maxerr(a.cpu(), b) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_repeats_bit_for_bit_on_card(dtype):
+    """The dispatch and the combine are gathers and ordered adds: two calls
+    (and two backward passes) give the same bits, dropped entries too."""
+    dev = _card()
+    ffn, cfg, p, x = _moe_case(21, 8, 64, dtype, cf=1.0)
+    runs = []
+    for _ in range(2):
+        pd = {k: v.to(dev).clone().requires_grad_() for k, v in p.items()}
+        xd = x.to(dev).clone().requires_grad_()
+        y, aux = ffn.moe(pd, cfg, xd)
+        (y.float().square().sum() + aux).backward()
+        runs.append([y, aux, xd.grad] + [pd[k].grad for k in sorted(pd)])
+    r = ffn.route(p["router"].to(dev), cfg, x.to(dev).reshape(-1,
+                                                                cfg.d_model))
+    assert bool((r.slot == cfg.n_experts * r.capacity).any())
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_hubert_forward_card_against_cpu():
+    """hubert's smoke encoder (bidirectional attention) on the card against
+    the CPU from the same weights: logits within 1e-4 x max|logit|, one
+    non-causal flash launch a layer."""
+    dev = _card()
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import model as M
+    from repro_torch.sharding.policy import init_params
+    from repro_torch.tree import tree_map
+    cfg = get_smoke("hubert-xlarge")
+    params = init_params(M.schema(cfg), torch.Generator().manual_seed(0),
+                         torch.float32, device="cpu")
+    frames = _randn(np.random.RandomState(22), 2, 150, cfg.d_model)
+    with torch.no_grad():
+        want, _ = M.logits(params, cfg, {"frames": frames})
+        ops.reset_launches()
+        got, aux = M.logits(tree_map(lambda t: t.to(dev), params), cfg,
+                            {"frames": frames.to(dev)})
+    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert float(aux) == 0.0
+    assert _maxerr(got.cpu(), want) <= 1e-4 * float(want.abs().max())

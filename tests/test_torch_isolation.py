@@ -69,7 +69,9 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
                 "launch.experiment", "core.protocol", "core.privacy",
                 "robustness.defense", "robustness.attacks",
                 "robustness.faults", "serve.runtime", "optim.schedule",
-                "data.tokens", "train.loop", "launch.train"):
+                "data.tokens", "train.loop", "launch.train",
+                "configs.qwen3_moe_30b_a3b", "configs.kimi_k2_1t_a32b",
+                "configs.hubert_xlarge"):
         assert f"repro_torch.{mod}" in r.stdout.split(), mod
 
 

@@ -226,7 +226,7 @@ def test_cross_entropy_matches_reference():
 
 
 def test_train_step_refuses_a_family_the_port_lacks():
-    cfg = get_smoke("internlm2-1.8b").with_(family="moe")
+    cfg = get_smoke("internlm2-1.8b").with_(family="ssm")
     with pytest.raises(NotImplementedError, match="not ported"):
         tloop.make_train_step(cfg)
 
