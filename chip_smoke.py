@@ -38,10 +38,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    reference's bounds), and with every slot empty (0); bf16 flash and
    decode also against their plain versions in fp32 on the same bf16
    inputs, within 5e-3 + 1e-2 |want| (TOL_FLASH_BF16_F32) and 1e-4 + 1e-2
-   |want| (TOL_DECODE_BF16_F32).
+   |want| (TOL_DECODE_BF16_F32).  Flash also with a key length of its own
+   (FLASH_CROSS: the VLM's cross shape B 2, S 2048, T 1600, H 32, K 8, hd
+   128, one text row against T 1600, and a ragged S 100 against T 37 at hd
+   64, non-causal) and causal at the VLM's GQA 4; decode also at GQA 4 and
+   over the VLM's image cache (W 1600, every slot valid).
    Then the SSD intra-chunk wrapper within 2e-4 (the reference's bound) at
    zamba2's width (B 2, S 512, H 80, N = P = 64, Lc 256), a ragged grouped
-   chunk (S 100, H 6, G 2) and per-step log-decays down to -16.
+   chunk (S 100, H 6, G 2) and per-step log-decays down to -16, and its
+   bf16 variant (``cfg.ssd_bf16``) against the plain bf16 route at zamba2's
+   width and the ragged grouped chunk within TOL_SSD_BF16 x max|want|.
 3. serve  — a full-width bundle (Table-3 g3, g1_active, g2; random heads;
    10000 cached latents) on the paper's largest scenario (mimic3, 5 active
    features, 10000 aligned rows), served by
@@ -94,8 +100,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    application) in fp32 at full width: ``prefill_step`` at B 2, S 512 and 8
    decode steps on the card and the CPU (identical tokens, logits within
    1e-4 x max|logit|), and on the card 512 decode steps against the full
-   forward (1e-3 x max|logit|).  Phase 5 times the SSD kernel at the
-   prefill's shape.
+   forward (1e-3 x max|logit|); that group's ``prefill_step`` with
+   ``ssd_bf16`` (the SSD kernel's bf16 variant) against the CPU's plain bf16
+   route within TOL_SSD_BF16 x max|logit|.  Phase 5 times the SSD kernel,
+   and its bf16 variant, at the prefill's shape.
 9. comparison — the paper's comparison on phase 4's scenario, 2 epochs a
    stage: ``run_splitnn``, ``run_vfedtrans`` and ``run_apcvfl(ablation=True,
    use_kernel=True)`` on the card and on the CPU at the same seed, held as
@@ -183,12 +191,34 @@ Phases, in order; any failure ends the run with a non-zero exit:
    Phase 2 also holds flash at qwen3's heads, (1, 128, 32, 4, 128) and
    (2, 2048, 32, 4, 128), and at hubert's, (4, 1500, 16, 16, 80), every
    mask; phase 5 times them and decode attention at qwen3's heads.
+14. vlm — the VLM, every gate drawn nonzero from a seed (the schema's
+   zeros would leave the cross blocks out) and the image embeddings normal
+   from a seed: (a) llama-3.2-vision-11b at full width and depth in bf16
+   (9,775,157,256 params), ``prefill_step`` at B 2, S 2048 against 1600
+   image tokens (exactly 40 flash launches a call: 32 causal, 8 cross) and
+   greedy decode through ``make_decode_step`` from
+   ``M.init_cache(image_embeds=)`` at B 8 over 1024 slots, 16 prompt tokens
+   fed through decode steps then 48 generated (exactly 40 decode launches a
+   step: 32 self, 8 image), each with a profiled window; prefill ms, step
+   p50/p99, tokens/s, peak memory, init seconds; (b) one group (4 self
+   blocks + 1 cross block) at full width in fp32, weights made once on the
+   CPU: ``prefill_step`` at B 2, S 128 and 8 decode steps give identical
+   tokens on the card and the CPU, logits within TOL_LM x max|logit|, and
+   the image zeroed moves the prefill's logits by more than 10 x TOL_LM;
+   (c) on the card, 64 decode steps against the forward within
+   TOL_DECODE_VS_FORWARD x max|logit|; (d) ``launch/train.main --layers 5``
+   in bf16 (B 8, S 128, 20 steps: losses finite, the eval loss falls,
+   flash only in the no-grad eval passes), then the smoke's one step on the
+   card against the CPU with nonzero gates and images at phase 12's
+   bounds.  Phase 5 times flash at the cross shape and at the VLM's causal
+   self shape, and decode at G 4 over 1024 slots and over the image cache.
 
 Launch counters are zeroed just before each run of a path (serve fp32,
 serve int8, train, probe, lm, each zamba prefill and the zamba decode,
 each card run of phase 9, phase 10's spec files, each runtime stream and
 the fault run, each eval pass and the steps of phase 12, phase 13's
-serve, ``prefill_step``, hubert's calls, eval passes and steps) and read
+serve, ``prefill_step``, hubert's calls, eval passes and steps, phase
+14's prefills, its decode, eval passes and steps) and read
 just after; every kernel must have launched on its path.  The last
 lines are a ``details:`` line (every measurement as JSON), the ``kernels``
 JSON, the card's name and power limit, and ``{"ok": true, "device":
@@ -342,20 +372,28 @@ FLASH_SHAPES = ((1, 128, 16, 8, 128), (2, 2048, 16, 8, 128),
                 (1, 32, 16, 8, 128), (1, 200, 4, 2, 64), (2, 77, 4, 4, 32),
                 (2, 512, 32, 32, 80), (2, 2048, 32, 32, 80),
                 (2, 4096, 16, 8, 128), (1, 128, 32, 4, 128),
-                (2, 2048, 32, 4, 128), (4, 1500, 16, 16, 80))
+                (2, 2048, 32, 4, 128), (4, 1500, 16, 16, 80),
+                (2, 2048, 32, 8, 128))
 # (B, S, H, K, hd); (2, 2048, 32, 32, 80) is zamba2's shared block at
 # prefill_step's size; (2, 4096, 16, 8, 128) is internlm2's heads at twice
 # its length (causal, window); then qwen3-moe-30b-a3b's GQA (8 q heads a
 # kv head) at the engine's prefill and at prefill_step's size, and
 # hubert-xlarge's MHA over 30 s of frames (1500, not a multiple of the
-# 64-key tile; the model runs it non-causal); a window of 100 ends inside
-# a 64-key tile
+# 64-key tile; the model runs it non-causal), and llama-3.2-vision-11b's
+# self-attention (4 q heads a kv head) at prefill_step's size; a window of
+# 100 ends inside a 64-key tile
 FLASH_MASKS = ((True, 0), (True, 128), (True, 100), (False, 0))
+# flash at a key length of its own (B, S, T, H, K, hd), non-causal: the VLM's
+# cross-attention at prefill_step's size (2048 text rows against its 1600
+# image tokens, GQA 4), one text row, and a ragged S 100 against T 37
+FLASH_CROSS = ((2, 2048, 1600, 32, 8, 128), (2, 1, 1600, 32, 8, 128),
+               (1, 100, 37, 4, 2, 64))
 DECODE_W = (64, 1000, 1024)
 # decode attention's (H, K, hd): internlm2-1.8b's GQA (2 q heads a kv
 # head), zamba2's MHA, internlm2-20b's and nemotron-4-15b's 6, yi-6b's
-# and qwen3-moe-30b-a3b's 8
-DECODE_HEADS = ((16, 8, 128), (32, 32, 80), (48, 8, 128), (32, 4, 128))
+# and qwen3-moe-30b-a3b's 8, llama-3.2-vision-11b's 4
+DECODE_HEADS = ((16, 8, 128), (32, 32, 80), (48, 8, 128), (32, 4, 128),
+                (32, 8, 128))
 DECODE_WINDOWS = (0, 48)
 # bf16 decode attention also against its plain version in fp32 on the same
 # bf16 inputs: |got - want| <= atol + rtol * |want|.  The kernel keeps its
@@ -375,6 +413,18 @@ SSD_CASES = {"zamba2 width": (2, 512, 80, 1, 64, 64, 256, False),
              "zamba2 prefill": (2, 2048, 80, 1, 64, 64, 256, False),
              "ragged grouped": (1, 100, 6, 2, 16, 32, 100, False),
              "steep decay": (2, 512, 8, 1, 64, 64, 256, True)}
+# the bf16 SSD (cfg.ssd_bf16) vs its plain bf16 version on the card, relative
+# to max|y| (max|states|): the plain version's own gap to the reference's
+# bf16 route reads 1.3e-3 and 1.9e-3 on the CPU (tests/test_torch_ssd.py).
+# The bound is placed by the kernel's and the planted faults' readings in
+# tools/ssd_planted_faults.py (the kernel well inside it, every fault far
+# above); that tool also reads the fp32 kernel against the plain bf16
+# version, finds it above the bound and so exits 1 at 5e-3: whether a bf16
+# variant's bound should also hold the fp32 function is an open question.
+# Phase 2 holds it in SSD_BF16_CASES, phase 8 holds zamba2's one-group bf16
+# prefill to the CPU's plain route within it (x max|logit|)
+TOL_SSD_BF16 = 5e-3
+SSD_BF16_CASES = ("zamba2 width", "ragged grouped")
 # the hybrid serving cell: zamba2-2.7b, full width and depth, bf16
 ZAMBA = dict(arch="zamba2-2.7b", prefill=(2, 2048), prefill_calls=3,
              batch=8, slots=1024, prompt=16, new=48, profile_steps=10)
@@ -434,6 +484,18 @@ HUBERT = dict(arch="hubert-xlarge", batch=4, frames=1500, check_layers=2,
 MOE_TRAIN = dict(arch="qwen3-moe-30b-a3b", layers=2, steps=20, batch=8,
                  seq=128)
 MOE_TRAIN_SMOKES = ("qwen3-moe-30b-a3b", "kimi-k2-1t-a32b", "hubert-xlarge")
+# phase 14: the VLM.  (a) llama-3.2-vision-11b at full width and depth in
+# bf16 (19.55 GB): prefill_step at B 2, S 2048 against its 1600 image
+# tokens; greedy decode at B 8 over 1024 slots, 16 prompt tokens fed
+# through decode steps then 48 generated, ten steps profiled
+VLM_IMAGE_TOKENS = 1600                 # the config's n_image_tokens
+VLM = dict(arch="llama-3.2-vision-11b", prefill=(2, 2048), prefill_calls=2,
+           batch=8, slots=1024, prompt=16, new=48, profile_steps=10)
+# (b) one group (4 self blocks + 1 cross block) at full width in fp32, card
+# against CPU; (c) decode against forward on the card at that group
+VLM_CHECK = dict(layers=5, prefill=(2, 128), steps=8, dvf=(2, 64))
+# (d) training at full width, one group, bf16 through launch/train
+VLM_TRAIN = dict(layers=5, steps=20, batch=8, seq=128)
 
 
 def log(msg: str) -> None:
@@ -838,6 +900,31 @@ def check_attention_kernels(gen, err: dict) -> None:
                                         causal, window, r))
                     err[ratio_key] = max(err[ratio_key], r)
             del q, k, v, got, want
+        for B, S, T, H, K, hd in FLASH_CROSS:
+            q = _rand(gen, (B, S, H, hd)).to(dt)
+            k, v = (_rand(gen, (B, T, K, hd)).to(dt) for _ in range(2))
+            got = ops.flash_attention(q, k, v, causal=False)
+            calls["flash_attention"] += 1
+            want = ref.flash_attention_model(q, k, v, causal=False)
+            torch.cuda.synchronize()
+            e = _maxerr(got.float(), want.float())
+            what = f"B={B} S={S} T={T} H={H} K={K} hd={hd}"
+            line = f"flash_attention {dname} {what} (keys of their own): " \
+                   f"max|err| {e:.3e}"
+            _require(got.dtype == dt and tuple(got.shape) == (B, S, H, hd)
+                     and _within(got.float(), want.float(), TOL_ATTN[dname]),
+                     ("flash cross", dname, what, e))
+            key = f"flash_attention/{dname}"
+            err[key] = max(err[key], e)
+            if dt == torch.bfloat16:
+                want = ref.flash_attention_model(q.float(), k.float(),
+                                                 v.float(), causal=False)
+                r = bound_ratio(got.float(), want, *TOL_FLASH_BF16_F32)
+                line += f", bound ratio vs fp32 plain {r:.3f}"
+                _require(r <= 1.0, ("flash cross bf16 vs fp32", what, r))
+                err[ratio_key] = max(err[ratio_key], r)
+            log(line)
+            del q, k, v, got, want
         B = LM["batch"]
         for (H, K, hd), W in itertools.product(DECODE_HEADS, DECODE_W):
             pos = W * 3 // 4
@@ -870,6 +957,31 @@ def check_attention_kernels(gen, err: dict) -> None:
                     _require(r <= 1.0, ("decode bf16 vs fp32", H, K, hd, W,
                                         window, r))
                     err[dratio_key] = max(err[dratio_key], r)
+        # the VLM's image cache: one row against its 1600 image tokens at G 4,
+        # every slot valid, as decode_cross_attention reads it
+        W = VLM_IMAGE_TOKENS
+        q = _rand(gen, (B, 32, 128)).to(dt)
+        kc, vc = (_rand(gen, (B, W, 8, 128)).to(dt) for _ in range(2))
+        sp = torch.arange(W, dtype=torch.int32, device="cuda")
+        got = ops.decode_attention(q, kc, vc, sp, W - 1)
+        calls["decode_attention"] += 1
+        want = ref.decode_attention_cache(q, kc, vc, sp, W - 1)
+        torch.cuda.synchronize()
+        e = _maxerr(got.float(), want.float())
+        line = f"decode_attention {dname} B={B} H=32 K=8 hd=128 W={W} " \
+               f"every slot valid (the image cache): max|err| {e:.3e}"
+        _require(_within(got.float(), want.float(), TOL_ATTN[dname]),
+                 ("decode image cache", dname, e))
+        err[f"decode_attention/{dname}"] = max(
+            err[f"decode_attention/{dname}"], e)
+        if dt == torch.bfloat16:
+            want = ref.decode_attention_cache(q.float(), kc.float(),
+                                              vc.float(), sp, W - 1)
+            r = bound_ratio(got.float(), want, *TOL_DECODE_BF16_F32)
+            line += f", bound ratio vs fp32 plain {r:.3f}"
+            _require(r <= 1.0, ("decode image cache bf16 vs fp32", r))
+            err[dratio_key] = max(err[dratio_key], r)
+        log(line)
         # every slot empty: the row is 0 in the kernel and its plain version
         W0 = DECODE_W[0]
         sp = torch.full((W0,), -1, dtype=torch.int32, device="cuda")
@@ -937,8 +1049,29 @@ def check_ssd_kernel(gen, err: dict) -> None:
         err["ssd_intra_chunk"] = max(err["ssd_intra_chunk"], e)
         err["ssd_intra_chunk_vs_cpu"] = max(err["ssd_intra_chunk_vs_cpu"],
                                             e_cpu)
+    # the bf16 variant (cfg.ssd_bf16) against the plain bf16 route on the
+    # same card tensors, relative to max|y| and max|states|
+    err["ssd_intra_chunk_bf16_rel"] = 0.0
+    for name in SSD_BF16_CASES:
+        B, S, H, G, N, P, Lc, steep = SSD_CASES[name]
+        args = _ssd_inputs(gen, B, S, H, G, N, P, steep)
+        got = ops.ssd_intra_chunk(*args, Lc, bf16=True)
+        want = ref.ssd_intra_chunk_ref(*args, Lc, bf16=True)
+        f32 = ref.ssd_intra_chunk_ref(*args, Lc)
+        torch.cuda.synchronize()
+        rel = max(_maxerr(g, w) / float(w.abs().max())
+                  for g, w in zip(got, want))
+        rel_f32 = max(_maxerr(g, w) / float(w.abs().max())
+                      for g, w in zip(f32, want))
+        log(f"ssd_intra_chunk bf16 {name} B={B} S={S} H={H} G={G} N={N} "
+            f"P={P} Lc={Lc}: max|err| / max|want| {rel:.3e} (bound "
+            f"{TOL_SSD_BF16:g}; the fp32 route's gap to it {rel_f32:.3e})")
+        _require(rel <= TOL_SSD_BF16, ("ssd bf16", name, rel))
+        err["ssd_intra_chunk_bf16_rel"] = max(err["ssd_intra_chunk_bf16_rel"],
+                                              rel)
     counts = dict(ops.LAUNCHES)
-    _require(counts["ssd_intra_chunk"] == len(SSD_CASES), counts)
+    _require(counts["ssd_intra_chunk"] == len(SSD_CASES)
+             + len(SSD_BF16_CASES), counts)
 
 
 def _underflow_share(a, Lc: int) -> float:
@@ -1488,7 +1621,9 @@ def _launch_floor_set() -> dict:
 
 def _attention_kernel_sets(gen) -> dict:
     """Timing sets of the attention kernels in bf16 at the LM cells'
-    shapes (internlm2-1.8b: H 16, K 8, hd 128): flash attention at
+    shapes (internlm2-1.8b: H 16, K 8, hd 128; the VLM's H 32, K 8 and its
+    cross shape, 2048 text rows against 1600 image tokens, where the
+    library call is SDPA with GQA and no mask): flash attention at
     ``prefill_step``'s B 2, S 2048 (causal) and, apart, at the engine's
     one-prompt prefill (B 1, S 128), at zamba2's shared block in its
     ``prefill_step`` (B 2, S 2048, H = K = 32, hd 80), at qwen3-moe's
@@ -1514,7 +1649,9 @@ def _attention_kernel_sets(gen) -> dict:
             ("flash_attention_qwen3_engine_prefill",
              (1, MOE["prefill_len"]), (32, 4, 128), True),
             ("flash_attention_hubert", (HUBERT["batch"], HUBERT["frames"]),
-             (16, 16, 80), False)):
+             (16, 16, 80), False),
+            ("flash_attention_vlm_prefill", VLM["prefill"], (32, 8, 128),
+             True)):
         q = _rand(gen, (B, S, H, hd)).to(bf16)
         k, v = (_rand(gen, (B, S, K, hd)).to(bf16) for _ in range(2))
         pairs = S * (S + 1) / 2 if causal else S * S
@@ -1532,6 +1669,21 @@ def _attention_kernel_sets(gen) -> dict:
                 F.scaled_dot_product_attention(
                     *(t.transpose(1, 2) for t in a), is_causal=c,
                     enable_gqa=True))]
+    # the VLM's cross-attention at prefill_step's size: 2048 text rows
+    # against the 1600 image tokens, no mask
+    (B, S), T, (H, K, hd) = VLM["prefill"], VLM_IMAGE_TOKENS, (32, 8, 128)
+    q = _rand(gen, (B, S, H, hd)).to(bf16)
+    k, v = (_rand(gen, (B, T, K, hd)).to(bf16) for _ in range(2))
+    sets["flash_attention_vlm_cross"] = [dict(
+        shape=f"B={B} S={S} T={T} H={H} K={K} hd={hd} full bf16",
+        flops=4.0 * B * H * hd * S * T,
+        bytes=2.0 * (2 * B * S * H * hd + 2 * B * T * K * hd),
+        peak=PEAK_BF16_FLOPS, iters=10,
+        kernel=lambda a=(q, k, v): ops.flash_attention(*a, causal=False),
+        plain=lambda a=(q, k, v): ref.flash_attention_model(*a,
+                                                            causal=False),
+        library=lambda a=(q, k, v): F.scaled_dot_product_attention(
+            *(t.transpose(1, 2) for t in a), enable_gqa=True))]
     B, W, pos = LM["batch"], LM["slots"], LM["slots"] // 2 - 1
     sp = torch.where(torch.arange(W) <= pos, torch.arange(W), -1).to(
         torch.int32).cuda()
@@ -1539,7 +1691,8 @@ def _attention_kernel_sets(gen) -> dict:
     mask = (sp >= 0) & (sp <= pos)
     for key, (H, K, hd) in (("decode_attention", (16, 8, 128)),
                             ("decode_attention_zamba2", (32, 32, 80)),
-                            ("decode_attention_qwen3", (32, 4, 128))):
+                            ("decode_attention_qwen3", (32, 4, 128)),
+                            ("decode_attention_vlm", (32, 8, 128))):
         q = _rand(gen, (B, H, hd)).to(bf16)
         kc, vc = (_rand(gen, (B, W, K, hd)).to(bf16) for _ in range(2))
         sets[key] = [dict(
@@ -1553,6 +1706,22 @@ def _attention_kernel_sets(gen) -> dict:
             library=lambda a=(q, kc, vc): F.scaled_dot_product_attention(
                 a[0][:, :, None], a[1].transpose(1, 2), a[2].transpose(1, 2),
                 attn_mask=mask[None, None, None], enable_gqa=True))]
+    # one decode row against the VLM's image K/V: 1600 slots, all valid
+    W, (H, K, hd) = VLM_IMAGE_TOKENS, (32, 8, 128)
+    spi = torch.arange(W, dtype=torch.int32, device="cuda")
+    q = _rand(gen, (B, H, hd)).to(bf16)
+    kc, vc = (_rand(gen, (B, W, K, hd)).to(bf16) for _ in range(2))
+    sets["decode_attention_vlm_image"] = [dict(
+        shape=f"B={B} W={W} valid={W} H={H} K={K} hd={hd} bf16 (image)",
+        flops=4.0 * B * H * hd * W,
+        bytes=2.0 * (2 * B * H * hd + 2 * B * W * K * hd) + 4.0 * W,
+        peak=PEAK_BF16_FLOPS,
+        kernel=lambda a=(q, kc, vc): ops.decode_attention(*a, spi, W - 1),
+        plain=lambda a=(q, kc, vc): ref.decode_attention_cache(*a, spi,
+                                                               W - 1),
+        library=lambda a=(q, kc, vc): F.scaled_dot_product_attention(
+            a[0][:, :, None], a[1].transpose(1, 2), a[2].transpose(1, 2),
+            enable_gqa=True))]
     return sets
 
 
@@ -1571,9 +1740,10 @@ def ssd_work(B, S, H, G, N, P, Lc) -> tuple:
 
 
 def _ssd_kernel_sets(gen) -> dict:
-    """The SSD kernel at zamba2's prefill (``prefill_step``'s B 2, S 2048:
-    H 80, one group, N = P = 64, Lc 256), inputs distributed as the model
-    gives them; no single PyTorch call computes the block."""
+    """The SSD kernel and its bf16 variant at zamba2's prefill
+    (``prefill_step``'s B 2, S 2048: H 80, one group, N = P = 64, Lc 256),
+    inputs distributed as the model gives them; no single PyTorch call
+    computes the block."""
     from repro_torch.kernels import ops, ref
     cfg = _zamba_cfg()
     B, S = ZAMBA["prefill"]
@@ -1581,11 +1751,17 @@ def _ssd_kernel_sets(gen) -> dict:
                       cfg.ssm_head_dim, cfg.ssm_chunk)
     args = _ssd_inputs(gen, B, S, H, G, N, P)
     flops, nbytes = ssd_work(B, S, H, G, N, P, Lc)
-    return {"ssd_intra_chunk": [dict(
-        shape=f"B={B} S={S} H={H} G={G} N={N} P={P} Lc={Lc} fp32",
+    # every product of the bf16 variant is bf16 x bf16 summed in fp32, work
+    # the card does at the bf16 peak however the kernel is built; its
+    # operands arrive and leave as fp32, so the bytes are the fp32 route's
+    return {f"ssd_intra_chunk{tag}": [dict(
+        shape=f"B={B} S={S} H={H} G={G} N={N} P={P} Lc={Lc} "
+              f"{'bf16 variant' if bf16 else 'fp32'}",
         flops=flops, bytes=nbytes, iters=10,
-        kernel=lambda: ops.ssd_intra_chunk(*args, Lc),
-        plain=lambda: ref.ssd_intra_chunk_ref(*args, Lc), library=None)]}
+        peak=PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS,
+        kernel=lambda b=bf16: ops.ssd_intra_chunk(*args, Lc, bf16=b),
+        plain=lambda b=bf16: ref.ssd_intra_chunk_ref(*args, Lc, bf16=b),
+        library=None)] for tag, bf16 in (("", False), ("_bf16", True))}
 
 
 def _observed(fn, calls: list):
@@ -2209,7 +2385,7 @@ def phase_zamba() -> dict:
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import model as M
-    from repro_torch.serve.decode import make_decode_step, prefill_step
+    from repro_torch.serve.decode import prefill_step
     from repro_torch.tree import tree_leaves
     log(f"=== phase 8: serve {ZAMBA['arch']} at full width and depth ===")
     cfg = _zamba_cfg()
@@ -2247,12 +2423,39 @@ def phase_zamba() -> dict:
         f"{counts}; profile {prof}")
     del lg
 
-    Bd, P, new = ZAMBA["batch"], ZAMBA["prompt"], ZAMBA["new"]
+    with torch.no_grad():
+        cache = M.init_cache(params, cfg, ZAMBA["batch"], ZAMBA["slots"])
+    res["decode"] = _lockstep_decode(params, cfg, cache, ZAMBA, G)
+    del cache
+    for k, v in res["decode"]["launches"].items():
+        res["launches"][k] += v
+    log(f"zamba decode: {res['decode']}")
+    del params
+    torch.cuda.empty_cache()
+    res["check"] = zamba_checks()
+    return res
+
+
+def _lockstep_decode(params, cfg, cache, cell: dict, per_step: int,
+                     kinds: dict = None) -> dict:
+    """Greedy decode through ``make_decode_step`` on the card from
+    ``cache`` (``M.init_cache``'s, at ``cell["batch"]`` rows; updated in
+    place): ``cell["prompt"]`` seeded prompt tokens fed through decode
+    steps, then ``cell["new"]`` generated, each step ending in the
+    device->host copy of its tokens.  Exactly ``per_step`` decode launches
+    a step and no other kernel (with ``kinds``, also these attention calls
+    a step by kind, ``_attention_kinds``); then ``cell["profile_steps"]``
+    more steps under the profiler."""
+    import time
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve.decode import make_decode_step
+    Bd, P, new = cell["batch"], cell["prompt"], cell["new"]
     prompts = np.random.RandomState(0).randint(
         0, cfg.vocab_size, (Bd, P)).astype(np.int32)
     step = make_decode_step(cfg)
-    state = {"cache": M.init_cache(params, cfg, Bd, ZAMBA["slots"]),
-             "pos": 0, "tok": torch.from_numpy(prompts[:, 0]).to(CARD)}
+    state = {"cache": cache, "pos": 0,
+             "tok": torch.from_numpy(prompts[:, 0]).to(CARD)}
 
     def one_step():
         """One decode step, ending in the device->host copy of its tokens;
@@ -2267,36 +2470,95 @@ def phase_zamba() -> dict:
 
     step_ms, generated = [], []
     ops.reset_launches()
-    with torch.no_grad():
+    with torch.no_grad(), _attention_kinds({}) as seen:
         for t in range(P + new):
             t0 = time.perf_counter()
             out = one_step()
             step_ms.append((time.perf_counter() - t0) * 1e3)
             if t >= P - 1:
                 generated.append(out)
-        dcounts = dict(ops.LAUNCHES)
-        per_step = {k: 0 for k in ops.LAUNCHES}
-        per_step["decode_attention"] = G * (P + new)
-        _require(dcounts == per_step, (dcounts, per_step))
-        gen = np.stack(generated[:new], axis=1)        # (B, new)
-        _require(gen.shape == (Bd, new) and int(gen.min()) >= 0
-                 and int(gen.max()) < cfg.vocab_size, gen.shape)
-        for k, v in dcounts.items():
-            res["launches"][k] += v
-        prof = _profiled(one_step, ZAMBA["profile_steps"])
+    counts = dict(ops.LAUNCHES)
+    want = {k: 0 for k in ops.LAUNCHES}
+    want["decode_attention"] = per_step * (P + new)
+    _require(counts == want and (kinds is None or seen == {
+        k: v * (P + new) for k, v in kinds.items()}), (counts, seen))
+    gen = np.stack(generated[:new], axis=1)            # (B, new)
+    _require(gen.shape == (Bd, new) and int(gen.min()) >= 0
+             and int(gen.max()) < cfg.vocab_size, gen.shape)
+    with torch.no_grad():
+        prof = _profiled(one_step, cell["profile_steps"])
     gen_ms = sum(step_ms[P:])
-    res["decode"] = {
-        "batch": Bd, "slots": ZAMBA["slots"], "prompt": P, "new": new,
-        "steps": P + new, "step_ms_p50": float(np.percentile(step_ms, 50)),
-        "step_ms_p99": float(np.percentile(step_ms, 99)),
-        "step_ms": step_ms, "generated_tokens_per_s": Bd * new / gen_ms * 1e3,
-        "launches": dcounts, "first_row_tokens": gen[0].tolist(),
-        "profile": prof}
-    log(f"zamba decode: {res['decode']}")
-    del params, state
-    torch.cuda.empty_cache()
-    res["check"] = zamba_checks()
-    return res
+    return {"batch": Bd, "slots": cell["slots"], "prompt": P, "new": new,
+            "steps": P + new,
+            "step_ms_p50": float(np.percentile(step_ms, 50)),
+            "step_ms_p99": float(np.percentile(step_ms, 99)),
+            "step_ms": step_ms,
+            "generated_tokens_per_s": Bd * new / gen_ms * 1e3,
+            "launches": counts, "kinds": seen,
+            "first_row_tokens": gen[0].tolist(), "profile": prof}
+
+
+def _prefill_then_decode(p, cfg, inputs: dict, steps: int) -> list:
+    """``prefill_step``'s logits, then ``steps`` greedy decode steps from
+    ``M.init_cache`` (16 slots; the VLM's from ``inputs["image_embeds"]``)
+    fed the prompt's first token: every call's logits, on the host."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.serve.decode import prefill_step
+    toks = inputs["tokens"]
+    with torch.no_grad():
+        lgs = [prefill_step(p, cfg, inputs).cpu()]
+        cache = M.init_cache(p, cfg, toks.shape[0], 16,
+                             image_embeds=inputs.get("image_embeds"))
+        tok = toks[:, 0]
+        for t in range(steps):
+            lg, cache = M.decode(p, cfg, tok, cache, t)
+            lgs.append(lg.cpu())
+            tok = torch.argmax(lg, -1).to(torch.int32)
+    return lgs
+
+
+def _held_logits(card: list, cpu: list, what: str) -> list:
+    """The card's calls against the CPU's: finite, the same greedy tokens,
+    each call's max|d| / max|logit| (returned) within TOL_LM."""
+    import torch
+    rel = []
+    for got, want in zip(card, cpu):
+        _require(bool(torch.isfinite(got).all()), "card logits not finite")
+        _require(torch.equal(torch.argmax(got, -1), torch.argmax(want, -1)),
+                 "card and cpu disagree on a greedy token")
+        rel.append(float((got - want).abs().max() / want.abs().max()))
+    log(f"{what} card vs cpu logits, max|d| / max|logit| (prefill, then "
+        f"each decode step): {rel}")
+    _require(max(rel) <= TOL_LM, rel)
+    return rel
+
+
+def _decode_vs_forward(p, cfg, inputs: dict, what: str) -> dict:
+    """On the card: the full forward over ``inputs["tokens"]`` (B, T)
+    against T decode steps from ``M.init_cache`` with T slots, within
+    TOL_DECODE_VS_FORWARD x max|logit|."""
+    import torch
+    from repro_torch.models import model as M
+    toks = inputs["tokens"]
+    B, T = toks.shape
+    with torch.no_grad():
+        full, _ = M.logits(p, cfg, inputs)
+        cache = M.init_cache(p, cfg, B, T,
+                             image_embeds=inputs.get("image_embeds"))
+        gap = torch.zeros((), device=CARD)
+        agree = torch.zeros((), dtype=torch.int64, device=CARD)
+        for t in range(T):
+            lg, cache = M.decode(p, cfg, toks[:, t], cache, t)
+            gap = torch.maximum(gap, (lg - full[:, t]).abs().max())
+            agree += (lg.argmax(-1) == full[:, t].argmax(-1)).sum()
+        dvf = float(gap) / float(full.abs().max())
+    log(f"{what} on the card, {T} decode steps vs the forward: max|d| / "
+        f"max|logit| {dvf:.3e}; greedy tokens agree at {int(agree)} of "
+        f"{B * T} positions")
+    _require(dvf <= TOL_DECODE_VS_FORWARD, dvf)
+    return {"decode_vs_forward_rel_err": dvf,
+            "decode_vs_forward_token_agreement": int(agree) / (B * T)}
 
 
 def zamba_checks() -> dict:
@@ -2312,7 +2574,6 @@ def zamba_checks() -> dict:
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    from repro_torch.models import model as M
     from repro_torch.serve.decode import prefill_step
     from repro_torch.tree import tree_map
     c = ZAMBA_CHECK
@@ -2322,58 +2583,46 @@ def zamba_checks() -> dict:
     card = tree_map(lambda t: t.to(CARD), cpu)
     B, S = c["prefill"]
     toks = _tokens(2, B, S, cfg.vocab_size)
-    runs = {}
+    what = f"zamba depth-{cfg.n_layers}"
     ops.reset_launches()
-    for dev, p in ((CARD, card), ("cpu", cpu)):
-        with torch.no_grad():
-            lgs = [prefill_step(p, cfg, {"tokens": toks.to(dev)}).cpu()]
-            cache = M.init_cache(p, cfg, B, 16)
-            tok = toks[:, 0].to(dev)
-            for t in range(c["steps"]):
-                lg, cache = M.decode(p, cfg, tok, cache, t)
-                lgs.append(lg.cpu())
-                tok = torch.argmax(lg, -1).to(torch.int32)
-        runs[dev] = lgs
+    runs = {dev: _prefill_then_decode(p, cfg, {"tokens": toks.to(dev)},
+                                      c["steps"])
+            for dev, p in ((CARD, card), ("cpu", cpu))}
     counts = dict(ops.LAUNCHES)
     _require(counts["ssd_intra_chunk"] == cfg.n_layers
              and counts["flash_attention"] == G
              and counts["decode_attention"] == G * c["steps"], counts)
-    rel = []
-    for got, want in zip(runs[CARD], runs["cpu"]):
-        _require(bool(torch.isfinite(got).all()), "card logits not finite")
-        _require(torch.equal(torch.argmax(got, -1), torch.argmax(want, -1)),
-                 "card and cpu disagree on a greedy token")
-        rel.append(float((got - want).abs().max() / want.abs().max()))
-    log(f"zamba depth-{cfg.n_layers} card vs cpu logits, max|d| / "
-        f"max|logit| (prefill, then each decode step): {rel}")
-    _require(max(rel) <= TOL_LM, rel)
+    rel = _held_logits(runs[CARD], runs["cpu"], what)
+    # the bf16 SSD (cfg.ssd_bf16): the card's kernel variant against the
+    # CPU's plain bf16 route, one prefill_step
+    bcfg = cfg.with_(ssd_bf16=True)
+    ops.reset_launches()
+    with torch.no_grad():
+        got = prefill_step(card, bcfg, {"tokens": toks.to(CARD)}).cpu()
+        bcounts = dict(ops.LAUNCHES)
+        want = prefill_step(cpu, bcfg, {"tokens": toks})
+    bf16_rel = float((got - want).abs().max() / want.abs().max())
+    bf16_vs_f32 = float((want - runs["cpu"][0]).abs().max()
+                        / runs["cpu"][0].abs().max())
+    log(f"zamba depth-{cfg.n_layers} ssd_bf16 prefill_step, card vs cpu: "
+        f"max|d| / max|logit| {bf16_rel:.3e} (bound {TOL_SSD_BF16:g}; the "
+        f"CPU's bf16 route vs its fp32 route {bf16_vs_f32:.3e}; launches "
+        f"{bcounts})")
+    _require(bcounts["ssd_intra_chunk"] == cfg.n_layers, bcounts)
+    _require(bf16_rel <= TOL_SSD_BF16, bf16_rel)
     del cpu
 
     ops.reset_launches()
-    with torch.no_grad():
-        tc = toks.to(CARD)
-        full, _ = M.logits(card, cfg, {"tokens": tc})
-        cache = M.init_cache(card, cfg, B, S)
-        gap = torch.zeros((), device=CARD)
-        agree = torch.zeros((), dtype=torch.int64, device=CARD)
-        for t in range(S):
-            lg, cache = M.decode(card, cfg, tc[:, t], cache, t)
-            gap = torch.maximum(gap, (lg - full[:, t]).abs().max())
-            agree += (lg.argmax(-1) == full[:, t].argmax(-1)).sum()
-        dvf = float(gap) / float(full.abs().max())
+    dvf = _decode_vs_forward(card, cfg, {"tokens": toks.to(CARD)}, what)
     dvf_counts = dict(ops.LAUNCHES)
     _require(dvf_counts["ssd_intra_chunk"] == cfg.n_layers
              and dvf_counts["flash_attention"] == G
              and dvf_counts["decode_attention"] == G * S, dvf_counts)
-    log(f"zamba depth-{cfg.n_layers} on the card, {S} decode steps vs the "
-        f"forward: max|d| / max|logit| {dvf:.3e}; greedy tokens agree at "
-        f"{int(agree)} of {B * S} positions")
-    _require(dvf <= TOL_DECODE_VS_FORWARD, dvf)
-    return {"layers": cfg.n_layers, "logit_rel_err": rel,
-            "max_logit_rel_err": max(rel), "tokens_identical": True,
-            "launches": counts, "decode_vs_forward_rel_err": dvf,
-            "decode_vs_forward_token_agreement": int(agree) / (B * S),
-            "decode_vs_forward_launches": dvf_counts}
+    return dict(dvf, layers=cfg.n_layers, logit_rel_err=rel,
+                max_logit_rel_err=max(rel), tokens_identical=True,
+                launches=counts, ssd_bf16_prefill_rel_err=bf16_rel,
+                ssd_bf16_vs_fp32_cpu_rel=bf16_vs_f32,
+                decode_vs_forward_launches=dvf_counts)
 
 
 def _held(card, cpu: dict, what: str,
@@ -3432,6 +3681,285 @@ def moe_audio_train(launches: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the VLM
+# ---------------------------------------------------------------------------
+
+def _vlm_gates(params, seed: int) -> list:
+    """Set each group's cross gate, in place, to a value drawn from
+    ``seed``: |gate| in [0.3, 1.2], either sign.  The schema starts the
+    gates at 0, where ``tanh(0)`` leaves the cross blocks out of every
+    comparison.  Returns the values."""
+    import torch
+    gate = params["groups"]["cross"]["gate"]
+    rng = np.random.RandomState(seed)
+    g = (rng.uniform(0.3, 1.2, tuple(gate.shape))
+         * rng.choice([-1.0, 1.0], tuple(gate.shape))).astype(np.float32)
+    gate.copy_(torch.from_numpy(g))
+    return g.reshape(-1).tolist()
+
+
+def _vlm_image(seed: int, B: int, cfg):
+    """Projected image embeddings (B, n_image_tokens, d_model), fp32, normal
+    from a numpy seed (the vision tower is a stub in the reference too)."""
+    import torch
+    return torch.from_numpy(np.random.RandomState(seed).randn(
+        B, cfg.n_image_tokens, cfg.d_model).astype(np.float32))
+
+
+@contextlib.contextmanager
+def _attention_kinds(tally: dict):
+    """Count each call of the attention wrappers by kind into ``tally``:
+    flash ``causal`` or ``cross`` (keys of their own, no mask), decode
+    ``self`` or ``image`` (the VLM's image K/V: VLM_IMAGE_TOKENS slots).
+    The wrappers themselves still count the launches."""
+    from repro_torch.kernels import ops
+    flash, decode = ops.flash_attention, ops.decode_attention
+
+    def counted_flash(q, k, v, **kw):
+        kind = "flash causal" if kw.get("causal", True) else (
+            "flash cross" if k.shape[1] != q.shape[1] else "flash full")
+        tally[kind] = tally.get(kind, 0) + 1
+        return flash(q, k, v, **kw)
+
+    def counted_decode(q, k, *a, **kw):
+        kind = ("decode image" if k.shape[1] == VLM_IMAGE_TOKENS
+                else "decode self")
+        tally[kind] = tally.get(kind, 0) + 1
+        return decode(q, k, *a, **kw)
+    ops.flash_attention, ops.decode_attention = counted_flash, counted_decode
+    try:
+        yield tally
+    finally:
+        ops.flash_attention, ops.decode_attention = flash, decode
+
+
+def phase_vlm() -> dict:
+    """The VLM (phase 14): (a) llama-3.2-vision-11b at full width and depth
+    in bf16 with nonzero gates: ``prefill_step`` at B 2, S 2048 against
+    1600 image tokens (40 flash launches a call: 32 causal, 8 cross) and
+    greedy decode through ``make_decode_step`` from
+    ``M.init_cache(image_embeds=)`` (40 decode launches a step: 32 self, 8
+    image), each profiled; (b) one group in fp32 against the CPU and the
+    zeroed image; (c) decode against forward; (d) training."""
+    import time
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.serve.decode import prefill_step
+    from repro_torch.sharding.policy import leaves
+    log(f"=== phase 14: serve {VLM['arch']} at full width and depth ===")
+    cfg = get_config(VLM["arch"])
+    L, G = cfg.n_layers, cfg.n_layers // cfg.cross_attn_period
+    _require(cfg.n_image_tokens == VLM_IMAGE_TOKENS, cfg.n_image_tokens)
+    smi = _smi()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = serve.build_params(cfg, device=CARD)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gates = _vlm_gates(params, 0)
+    n_params = sum(t.numel() for t in leaves(params))
+    res = {"n_params": n_params, "init_s": init_s, "gates": gates,
+           "param_bytes": sum(t.numel() * t.element_size()
+                              for t in leaves(params)),
+           "launches": {k: 0 for k in ops.LAUNCHES}}
+    log(f"vlm init ({smi}): {init_s:.2f} s for {n_params} params "
+        f"({res['param_bytes'] / 2**30:.2f} GiB); every gate nonzero, drawn "
+        f"from seed 0: {gates}")
+    _require(n_params == M.count_params_analytic(cfg)
+             and all(g != 0.0 for g in gates), (n_params, gates))
+
+    B, S = VLM["prefill"]
+    inputs = {"tokens": _tokens(1, B, S, cfg.vocab_size).to(CARD),
+              "image_embeds": _vlm_image(1, B, cfg).to(CARD)}
+    per_prefill = {k: 0 for k in ops.LAUNCHES}
+    per_prefill["flash_attention"] = L
+    kinds_want = {"flash causal": L - G, "flash cross": G}
+    walls = []
+    with torch.no_grad():
+        for _ in range(1 + VLM["prefill_calls"]):     # the first warms up
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            with _attention_kinds({}) as kinds:
+                t0 = time.perf_counter()
+                lg = prefill_step(params, cfg, inputs)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            counts = dict(ops.LAUNCHES)
+            _require(counts == per_prefill and kinds == kinds_want,
+                     (counts, kinds))
+            for k, v in counts.items():
+                res["launches"][k] += v
+        _require(tuple(lg.shape) == (B, cfg.vocab_size) and lg.dtype
+                 == torch.bfloat16 and bool(torch.isfinite(lg).all()),
+                 (tuple(lg.shape), lg.dtype))
+        prof = _profiled(lambda: prefill_step(params, cfg, inputs), 1)
+    res["prefill_step"] = {"B": B, "S": S, "T": cfg.n_image_tokens,
+                           "ms": walls,
+                           "ms_p50_warm": float(np.median(walls[1:])),
+                           "launches_per_call": counts,
+                           "kinds_per_call": kinds, "profile": prof}
+    log(f"vlm prefill_step B={B} S={S} T={cfg.n_image_tokens}: {walls} ms, "
+        f"launches per call {counts} ({kinds}); profile {prof}")
+    del lg, inputs
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache = M.init_cache(params, cfg, VLM["batch"], VLM["slots"],
+                             image_embeds=_vlm_image(2, VLM["batch"],
+                                                     cfg).to(CARD))
+        torch.cuda.synchronize()
+        cache_ms = (time.perf_counter() - t0) * 1e3
+    res["decode"] = _lockstep_decode(
+        params, cfg, cache, VLM, L,
+        kinds={"decode self": L - G, "decode image": G})
+    res["decode"]["init_cache_ms"] = cache_ms
+    del cache
+    for k, v in res["decode"]["launches"].items():
+        res["launches"][k] += v
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"vlm decode ({smi}): {res['decode']}; peak "
+        f"{res['peak_bytes'] / 2**30:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+    res["check"] = vlm_checks()
+    torch.cuda.empty_cache()
+    res["train"] = vlm_train(res["launches"])
+    return res
+
+
+def vlm_checks() -> dict:
+    """(b) llama-3.2-vision-11b at full width with one group (4 self blocks
+    and the cross block) in fp32, nonzero gates, weights made once on the
+    CPU and copied to the card: ``prefill_step`` at B 2, S 128 and 8 greedy
+    decode steps from ``init_cache(image_embeds=)`` on the card and the CPU
+    give identical tokens and logits within TOL_LM x max|logit|; the same
+    prefill with the image zeroed moves the card's logits by more than
+    10 x TOL_LM (the cross path is live).  (c) On the card, 64 decode
+    steps against the full forward within TOL_DECODE_VS_FORWARD x
+    max|logit|."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serve.decode import prefill_step
+    from repro_torch.tree import tree_map
+    c = VLM_CHECK
+    cfg = get_config(VLM["arch"]).with_(n_layers=c["layers"],
+                                        dtype="float32")
+    L = cfg.n_layers
+    cpu = serve.build_params(cfg, seed=1, device="cpu")
+    gates = _vlm_gates(cpu, 1)
+    card = tree_map(lambda t: t.to(CARD), cpu)
+    B, S = c["prefill"]
+    toks, img = _tokens(3, B, S, cfg.vocab_size), _vlm_image(3, B, cfg)
+    what = f"vlm depth-{L} fp32 (gates {gates})"
+    ops.reset_launches()
+    runs = {dev: _prefill_then_decode(p, cfg, {"tokens": toks.to(dev),
+                                               "image_embeds": img.to(dev)},
+                                      c["steps"])
+            for dev, p in ((CARD, card), ("cpu", cpu))}
+    counts = dict(ops.LAUNCHES)
+    _require(counts["flash_attention"] == L
+             and counts["decode_attention"] == L * c["steps"], counts)
+    rel = _held_logits(runs[CARD], runs["cpu"], what)
+    with torch.no_grad():
+        zeroed = prefill_step(card, cfg, {
+            "tokens": toks.to(CARD),
+            "image_embeds": torch.zeros_like(img).to(CARD)}).cpu()
+    moved = float((zeroed - runs[CARD][0]).abs().max()
+                  / runs[CARD][0].abs().max())
+    log(f"{what}: the image zeroed moves the card's prefill logits by "
+        f"{moved:.3e}")
+    _require(moved > 10 * TOL_LM, moved)
+    del cpu
+
+    Bv, T = c["dvf"]
+    ops.reset_launches()
+    dvf = _decode_vs_forward(card, cfg, {
+        "tokens": _tokens(4, Bv, T, cfg.vocab_size).to(CARD),
+        "image_embeds": _vlm_image(4, Bv, cfg).to(CARD)}, f"vlm depth-{L}")
+    dvf_counts = dict(ops.LAUNCHES)
+    _require(dvf_counts["flash_attention"] == L
+             and dvf_counts["decode_attention"] == L * T, dvf_counts)
+    return dict(dvf, layers=L, gates=gates, logit_rel_err=rel,
+                max_logit_rel_err=max(rel), tokens_identical=True,
+                zeroed_image_moves=moved, launches=counts,
+                decode_vs_forward_launches=dvf_counts)
+
+
+def vlm_train(launches: dict) -> dict:
+    """(d) llama-3.2-vision-11b at full width, one group (4 self blocks and
+    the cross block), bf16 through ``launch/train.main --layers 5`` (zero
+    images, as the reference's CLI): every loss finite, the eval loss
+    falls, flash once a block in each no-grad eval pass and no kernel
+    inside the steps; then one AdamW step of the smoke config with nonzero
+    gates and images on the card against the CPU (``_held_training``)."""
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import train as train_cli
+    from repro_torch.optim.adam import AdamW
+    from repro_torch.train.loop import make_train_step
+    t = VLM_TRAIN
+    log(f"--- phase 14 (d): train {VLM['arch']} at full width, depth "
+        f"{t['layers']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "train.json")
+        argv = ["--arch", VLM["arch"], "--layers", str(t["layers"]),
+                "--steps", str(t["steps"]), "--batch", str(t["batch"]),
+                "--seq", str(t["seq"]), "--log-every", "5", "--device",
+                CARD, "--out", out]
+        rc = train_cli.main(argv)
+        _require(rc == 0, rc)
+        with open(out) as fh:
+            rec = json.load(fh)
+    la = rec["launches"]
+    _require(rec["n_layers"] == t["layers"] and rec["dtype"] == "bfloat16",
+             rec)
+    _require(all(np.isfinite(rec["losses"])) and rec["improved"]
+             and rec["eval_after"] < rec["eval_before"], rec)
+    _require(la["eval_before"]["flash_attention"] == t["layers"]
+             and la["eval_after"]["flash_attention"] == t["layers"], la)
+    _require(all(v == 0 for v in la["steps"].values()),
+             f"kernels launched inside the steps: {la['steps']}")
+    for part in la.values():
+        for k, v in part.items():
+            launches[k] += v
+    warm = rec["step_s"][1:]
+    res = {"full": {
+        "arch": VLM["arch"], "layers": t["layers"], "batch": t["batch"],
+        "seq": t["seq"], "losses": rec["losses"],
+        "eval_before": rec["eval_before"], "eval_after": rec["eval_after"],
+        "step_ms": [x * 1e3 for x in rec["step_s"]],
+        "step_ms_p50": float(np.median(warm)) * 1e3,
+        "tokens_per_s": t["batch"] * t["seq"] / float(np.median(warm)),
+        "peak_bytes": rec["peak_bytes"], "launches": la}}
+    f = res["full"]
+    log(f"train {VLM['arch']} x{t['layers']} layers (bf16; {_smi()}): step "
+        f"{f['step_ms_p50']:.1f} ms p50 after the first "
+        f"({f['step_ms'][0]:.1f}), {f['tokens_per_s']:.0f} tokens/s, peak "
+        f"{(f['peak_bytes'] or 0) / 2**30:.2f} GiB; eval "
+        f"{rec['eval_before']:.4f} -> {rec['eval_after']:.4f}")
+    torch.cuda.empty_cache()
+    cfg = get_smoke(VLM["arch"])
+    fns = make_train_step(cfg, AdamW())
+    params, state = fns.init(torch.Generator().manual_seed(0))
+    _vlm_gates(params, 5)
+    batches = _lm_batches(cfg, 4, 64, 1)
+    batches[0]["image_embeds"] = _vlm_image(5, 4, cfg)
+    card = _train_run(fns, params, state, batches, CARD)
+    _require(all(v == 0 for v in card[3].values()), card[3])
+    cpu = _train_run(fns, params, state, batches, "cpu")
+    res["smoke"] = _held_training(f"{VLM['arch']} smoke", cfg, card, cpu)
+    return res
+
+
 def _smi() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -3499,6 +4027,8 @@ def main(argv=None) -> int:
     done("lm_train")
     moe_audio = phase_moe_audio()
     done("moe_audio")
+    vlm = phase_vlm()
+    done("vlm")
 
     csrc = "src/repro_torch/kernels/csrc/"
     srcs = {"lane_mlp_fwd": ("lane_mlp_fwd.cu", "lane_mlp.py:57"),
@@ -3521,7 +4051,8 @@ def main(argv=None) -> int:
                     + experiments["launches"][name]
                     + runtime["launches"][name]
                     + lm_train["launches"][name]
-                    + moe_audio["launches"][name])
+                    + moe_audio["launches"][name]
+                    + vlm["launches"][name])
         _require(launches > 0, f"{name} never launched on its path")
         kernels.append({
             "name": name, "route": "cuda", "source": csrc + srcs[name][0],
@@ -3538,6 +4069,8 @@ def main(argv=None) -> int:
                 f"{name}/bf16_vs_f32_ratio"]
         if name == "ssd_intra_chunk":       # against the plain version on CPU
             kernels[-1]["max_abs_err_vs_cpu"] = errs["ssd_intra_chunk_vs_cpu"]
+            # the bf16 variant vs the plain bf16 route, x max|want|
+            kernels[-1]["max_rel_err_bf16"] = errs["ssd_intra_chunk_bf16_rel"]
     smi = _smi()
     stream = {m: {k: serve[m][k] for k in ("rows_per_s", "latency_ms_p50",
                                            "latency_ms_p99")}
@@ -3603,6 +4136,22 @@ def main(argv=None) -> int:
                "hubert_card_vs_cpu": ma["hubert"]["check"]["logit_rel_err"],
                "train_step_ms_p50": ma["train"]["full"]["step_ms_p50"],
                "train_peak_bytes": ma["train"]["full"]["peak_bytes"]}))
+    log(f"vlm ({VLM['arch']}, bf16; {smi}): " + json.dumps(
+        {"prefill_step_ms": vlm["prefill_step"]["ms"],
+         "prefill_busy_share": vlm["prefill_step"]["profile"][
+             "device_busy_share"]}
+        | {k: vlm["decode"][k] for k in (
+            "step_ms_p50", "step_ms_p99", "generated_tokens_per_s")}
+        | {"decode_busy_share": vlm["decode"]["profile"]["device_busy_share"],
+           "decode_ms_by_kind": vlm["decode"]["profile"][
+               "device_ms_per_call"],
+           "peak_bytes": vlm["peak_bytes"], "init_s": vlm["init_s"],
+           "card_vs_cpu": vlm["check"]["max_logit_rel_err"],
+           "zeroed_image_moves": vlm["check"]["zeroed_image_moves"],
+           "decode_vs_forward": vlm["check"]["decode_vs_forward_rel_err"],
+           "train_step_ms_p50": vlm["train"]["full"]["step_ms_p50"],
+           "train_tokens_per_s": vlm["train"]["full"]["tokens_per_s"],
+           "train_peak_bytes": vlm["train"]["full"]["peak_bytes"]}))
     log("details: " + json.dumps({"timing": timing, "serve": serve,
                                   "train": train, "train_time": train_time,
                                   "turns": turns, "g3_limit": limit,
@@ -3610,7 +4159,7 @@ def main(argv=None) -> int:
                                   "comparison": comparison,
                                   "experiments": experiments,
                                   "runtime": runtime, "lm_train": lm_train,
-                                  "moe_audio": moe_audio,
+                                  "moe_audio": moe_audio, "vlm": vlm,
                                   "elapsed_s": elapsed,
                                   "wrappers": wrappers,
                                   "torch": torch.__version__,

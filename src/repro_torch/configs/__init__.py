@@ -1,9 +1,9 @@
 """Model configs: ``get_config(arch_id)`` / ``get_smoke(arch_id)`` for the
 families the port has (the dense decoders, the MoE decoders, the
-encoder-only audio transformer and the zamba2 hybrid), and the tabular
-APC-VFL protocol's hyperparameters (``apcvfl_paper``).  The VLM and xLSTM
-configs raise ``NotImplementedError`` until their slices (ROADMAP.md,
-Queue 1 item 9)."""
+encoder-only audio transformer, the zamba2 hybrid and the VLM), and the
+tabular APC-VFL protocol's hyperparameters (``apcvfl_paper``).  The xLSTM
+config raises ``NotImplementedError`` until its slice (ROADMAP.md, Queue 1
+item 9)."""
 from __future__ import annotations
 
 import importlib
@@ -26,10 +26,10 @@ ARCH_IDS = [
     "apcvfl-paper",
 ]
 # the configs ported so far: the dense decoders, the zamba2 hybrid, the MoE
-# decoders and the audio encoder; the VLM and xLSTM come later
+# decoders, the audio encoder and the VLM; the xLSTM comes later
 PORTED = ("internlm2-1.8b", "internlm2-20b", "yi-6b", "nemotron-4-15b",
           "zamba2-2.7b", "qwen3-moe-30b-a3b", "kimi-k2-1t-a32b",
-          "hubert-xlarge")
+          "hubert-xlarge", "llama-3.2-vision-11b")
 
 
 def _mod(arch: str):

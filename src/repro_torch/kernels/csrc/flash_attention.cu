@@ -3,19 +3,24 @@
 //     out[b, i, h] = sum_j softmax_j(q[b, i, h] . k[b, j, kh] * scale + mask)
 //                    * v[b, j, kh],        kh = h / (H / K)  (GQA)
 //
-// q (B, S, H, hd), k/v (B, S, K, hd) in the model's layout, fp32 or bf16;
+// q (B, S, H, hd), k/v (B, T, K, hd) in the model's layout, fp32 or bf16;
 // out (B, S, H, hd) in q's type.  mask: j <= i when causal, i - j < window
-// when window > 0, j < S always.
+// when window > 0, j < T always.  T is the key length: T = S for
+// self-attention, and a length of its own (T != S) for the VLM's
+// cross-attention from S text positions to T image tokens, which takes
+// neither a causal mask nor a window (the C API refuses them at T != S).
 //
 // Replaces: repro/kernels/flash_attention.py::_attn_kernel (pallas_call in
 // flash_attention), reached through models/attention.attention when
 // cfg.use_flash_kernel is set; the port also routes the cache prefill
 // (models/transformer.block_fwd_cache) here, which computes the same
-// function with _sdpa and causal_mask.
+// function with _sdpa and causal_mask, and the VLM's cross-attention
+// (models/attention.cross_attention), which the reference computes with
+// _sdpa and a zero bias.
 //
 // Both routes share the reference's online softmax: a block owns one (b, h)
 // and a tile of BQ = 64 query rows and walks the kv tiles of BK = 64 keys
-// that its mask reaches; the running max m, the denominator l and the
+// (of T) that its mask reaches; the running max m, the denominator l and the
 // output accumulator stay in registers in fp32, as the reference keeps them
 // in VMEM scratch.  Tiles wholly before the window or after the causal
 // diagonal are skipped (they add exact zeros); inside a tile a masked score
@@ -25,9 +30,9 @@
 // head h is read in place: no transpose and no GQA copy.  No atomics: the
 // result does not depend on scheduling.  No fast-math.
 //
-// What bounds it on the H100: 4*B*H*S*S*hd operations (half of them under a
+// What bounds it on the H100: 4*B*H*S*T*hd operations (half of them under a
 // causal mask) against 989 TFLOP/s of bf16 tensor cores or 67 TFLOP/s of
-// fp32; at S >= 128 the operations dominate the bytes of q, k, v and out.
+// fp32; at S, T >= 128 the operations dominate the bytes of q, k, v and out.
 //
 // fp32 route (flash_kernel, any hd <= 128): IEEE fp32 FMAs on the
 // CUDA cores, no TF32, so it holds the reference's fp32 bound.  256
@@ -44,7 +49,7 @@
 // rows a warp.
 //   - Copies: Q once, then K and V through a two-stage ring, all as 16-byte
 //     cp.async.cg with commit_group / wait_group; tile j+1's copies are in
-//     flight while tile j's math runs.  Rows past S are zero-filled by
+//     flight while tile j's math runs.  Rows past S (T) are zero-filled by
 //     cp.async's src-size operand (so 0 * p stays 0) and masked.  Shared
 //     rows are padded to hd + 8 bf16: the eight 16-byte rows that one
 //     ldmatrix phase reads land in eight distinct bank quads: a block holds
@@ -59,7 +64,7 @@
 //     max is two __shfl_xor_sync within the quad, its sum stays a
 //     per-thread partial (rescaled like the accumulator) and is reduced
 //     once at the end.  The mask is evaluated only on tiles that cross the
-//     diagonal, the window's edge or S.
+//     diagonal, the window's edge or T.
 //   - O += P.V: P is rounded to bf16 (round to nearest even) and used in
 //     place as the A fragment of the second mma.sync (the m16n8 accumulator
 //     layout pairs into the m16n8k16 A layout), so P never goes through
@@ -100,7 +105,8 @@ __host__ __device__ inline size_t smem_floats(int hd) {
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ out, int S,
-             int H, int K, int hd, int causal, int window, float scale) {
+             int T, int H, int K, int hd, int causal, int window,
+             float scale) {
   extern __shared__ float4 smem4[];
   const int ldq = hd + 16, ldk = hd + 1;
   float* Qs = reinterpret_cast<float*>(smem4);
@@ -113,8 +119,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const size_t qs = (size_t)H * hd, ks = (size_t)K * hd;   // per position
   const float* qb = q + ((size_t)b * S * H + h) * hd;
-  const float* kb = k + ((size_t)b * S * K + kh) * hd;
-  const float* vb = v + ((size_t)b * S * K + kh) * hd;
+  const float* kb = k + ((size_t)b * T * K + kh) * hd;
+  const float* vb = v + ((size_t)b * T * K + kh) * hd;
 
   for (int e = tid; e < BQ * hd; e += THREADS) {
     const int r = e / hd, d = e - r * hd;
@@ -132,14 +138,14 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   // kv tiles the mask reaches: none after the diagonal of the tile's last
   // row, none wholly before the window of its first row
-  const int kv_end = causal ? min(S, q0 + BQ) : S;
+  const int kv_end = causal ? min(T, q0 + BQ) : T;
   const int kv_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
 
   for (int k0 = kv_begin; k0 < kv_end; k0 += BK) {
     __syncthreads();            // the previous tile's K, V and P are read
     for (int e = tid; e < BK * hd; e += THREADS) {
       const int r = e / hd, d = e - r * hd;
-      const bool in = k0 + r < S;
+      const bool in = k0 + r < T;
       Ks[r * ldk + d] = in ? kb[(size_t)(k0 + r) * ks + d] : 0.f;
       Vs[r * hd + d] = in ? vb[(size_t)(k0 + r) * ks + d] : 0.f;
     }
@@ -170,7 +176,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
         const int col = k0 + tx + 16 * j;
-        ok[j] = col < S && (!causal || col <= row) &&
+        ok[j] = col < T && (!causal || col <= row) &&
                 (window <= 0 || row - col < window);
         s[i][j] = ok[j] ? s[i][j] * scale : NEG_INF;
         mx = fmaxf(mx, s[i][j]);
@@ -301,13 +307,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // running max of its row (log2 scale), and alpha the factor that rescales
 // the row's accumulators (and this thread's part l of its denominator).
 // s[j][e] sits at row row0 + 8 * (e >> 1), key col0 + 8 * j + (e & 1).
-// MASK: the tile crosses the diagonal, the window's edge or S, so each
+// MASK: the tile crosses the diagonal, the window's edge or T, so each
 // score is masked to -1e30 and its p forced to 0 after the exponential
 // (exp2(-1e30 - -1e30) = 1); other tiles skip the mask entirely.
 template <bool MASK, int NT>
 __device__ __forceinline__ void online_softmax(
     float (&s)[NT][4], float (&m)[2], float (&l)[2], float (&alpha)[2],
-    float scale_log2, int row0, int col0, int S, int causal, int window) {
+    float scale_log2, int row0, int col0, int T, int causal, int window) {
   uint32_t keep = 0xffffffffu;          // bit 4*j + e: s[j][e] unmasked
   float mx[2] = {NEG_INF, NEG_INF};     // of the raw scores
 #pragma unroll
@@ -316,7 +322,7 @@ __device__ __forceinline__ void online_softmax(
     for (int e = 0; e < 4; ++e) {
       if (MASK) {
         const int row = row0 + (e >> 1) * 8, col = col0 + j * 8 + (e & 1);
-        if (!(col < S && (!causal || col <= row) &&
+        if (!(col < T && (!causal || col <= row) &&
               (window <= 0 || row - col < window))) {
           s[j][e] = NEG_INF;
           keep &= ~(1u << (4 * j + e));
@@ -354,8 +360,8 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
 flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ out, int S, int H, int K,
-                 int causal, int window, float scale_log2) {
+                 __nv_bfloat16* __restrict__ out, int S, int T, int H,
+                 int K, int causal, int window, float scale_log2) {
   static_assert(HD % 16 == 0 && HD <= HD_MAX, "hd: a multiple of 16");
   constexpr int LD = HD + 8;            // shared row stride, bf16
   constexpr int CH = HD / 8;            // 16-byte chunks per row
@@ -377,8 +383,8 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
   const size_t qs = (size_t)H * HD;     // per position
   const int ks = K * HD;
   const __nv_bfloat16* qb = q + ((size_t)b * S * H + h) * HD;
-  const __nv_bfloat16* kb = k + ((size_t)b * S * K + kh) * HD;
-  const __nv_bfloat16* vb = v + ((size_t)b * S * K + kh) * HD;
+  const __nv_bfloat16* kb = k + ((size_t)b * T * K + kh) * HD;
+  const __nv_bfloat16* vb = v + ((size_t)b * T * K + kh) * HD;
 
   for (int c = tid; c < BQ * CH; c += MMA_THREADS) {
     const int r = c / CH, d = (c - r * CH) * 8;
@@ -390,7 +396,7 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
 
   // kv tiles the mask reaches: none after the diagonal of the tile's last
   // row, none wholly before the window of its first row
-  const int kv_end = causal ? min(S, q0 + BQ) : S;
+  const int kv_end = causal ? min(T, q0 + BQ) : T;
   const int kv_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
   const int n_tiles = (kv_end - kv_begin + BK - 1) / BK;
 
@@ -399,8 +405,8 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
     const uint32_t stage = (t & 1) * STAGE;
     for (int c = tid; c < BK * CH; c += MMA_THREADS) {
       const int r = c / CH, d = (c - r * CH) * 8;
-      const bool in = k0 + r < S;
-      // 32-bit offsets (S * K * hd < 2^31, checked at launch) spare
+      const bool in = k0 + r < T;
+      // 32-bit offsets (T * K * hd < 2^31, checked at launch) spare
       // registers
       const int off = (in ? k0 + r : 0) * ks + d;
       cp_async16(Ks + stage + r * ROW + d * 2, kb + off, in);
@@ -464,12 +470,12 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
 
     const int k0 = kv_begin + t * BK;
     float alpha[2];
-    if (k0 + BK > S || (causal && k0 + BK - 1 > q0) ||
+    if (k0 + BK > T || (causal && k0 + BK - 1 > q0) ||
         (window > 0 && q0 + BQ - 1 - k0 >= window))
-      online_softmax<true>(s, m, l, alpha, scale_log2, row0, k0 + tg * 2, S,
+      online_softmax<true>(s, m, l, alpha, scale_log2, row0, k0 + tg * 2, T,
                            causal, window);
     else
-      online_softmax<false>(s, m, l, alpha, scale_log2, row0, k0 + tg * 2, S,
+      online_softmax<false>(s, m, l, alpha, scale_log2, row0, k0 + tg * 2, T,
                             causal, window);
 #pragma unroll
     for (int j = 0; j < DN; ++j) {
@@ -537,7 +543,7 @@ cudaError_t grant_smem(Kernel kernel, size_t smem, size_t (&granted)[64]) {
 }
 
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
-               int S, int H, int K, int hd, int causal, int window,
+               int S, int T, int H, int K, int hd, int causal, int window,
                float scale, cudaStream_t stream) {
   static size_t granted[64] = {};
   const size_t smem = smem_floats(hd) * sizeof(float);
@@ -546,15 +552,15 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   flash_kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), S, H, K, hd,
-      causal, window, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), S, T, H, K,
+      hd, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
 int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
-               int S, int H, int K, int causal, int window, float scale,
-               cudaStream_t stream) {
+               int S, int T, int H, int K, int causal, int window,
+               float scale, cudaStream_t stream) {
   static size_t granted[64] = {};
   constexpr size_t smem = mma_smem_bytes(HD);
   const cudaError_t e = grant_smem(flash_kernel_mma<HD>, smem, granted);
@@ -564,18 +570,18 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), S, H, K, causal, window,
+      static_cast<__nv_bfloat16*>(out), S, T, H, K, causal, window,
       scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                int B, int S, int H, int K, int hd, int causal, int window,
-                float scale, cudaStream_t stream) {
+                int B, int S, int T, int H, int K, int hd, int causal,
+                int window, float scale, cudaStream_t stream) {
 #define FLASH_MMA_CASE(D)                                                   \
   case D:                                                                   \
-    return launch_mma<D>(q, k, v, out, B, S, H, K, causal, window, scale,   \
-                         stream);
+    return launch_mma<D>(q, k, v, out, B, S, T, H, K, causal, window,       \
+                         scale, stream);
   switch (hd) {
     FLASH_MMA_CASE(16)
     FLASH_MMA_CASE(32)
@@ -596,25 +602,27 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 extern "C" int flash_attention_max_hd() { return HD_MAX; }
 
 // dtype 0 = fp32 (any hd <= 128), 1 = bf16 (hd a multiple of 16 up to 128);
-// q, k, v and out alike, 16-byte aligned for bf16.  Launches on `stream`;
+// q, k, v and out alike, 16-byte aligned for bf16.  S query rows, T keys; T
+// != S only without a causal mask or a window.  Launches on `stream`;
 // returns cudaGetLastError() (0 = launched).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, int B, int S, int H, int K, int hd,
-                               int causal, int window, float scale,
+                               void* out, int B, int S, int T, int H, int K,
+                               int hd, int causal, int window, float scale,
                                int dtype, void* stream) {
   if (B <= 0 || S <= 0) return 0;
-  if (H <= 0 || K <= 0 || H % K != 0 || hd <= 0 || hd > HD_MAX ||
-      window < 0 || H > 65535 || B > 65535)
+  if (T < 0 || H <= 0 || K <= 0 || H % K != 0 || hd <= 0 || hd > HD_MAX ||
+      window < 0 || H > 65535 || B > 65535 ||
+      (T != S && (causal || window > 0)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_f32(q, k, v, out, B, S, H, K, hd, causal, window, scale,
+    return launch_f32(q, k, v, out, B, S, T, H, K, hd, causal, window, scale,
                       s);
-  if (dtype == 1 && (long long)S * K * hd >= (1LL << 31))
+  if (dtype == 1 && (long long)T * K * hd >= (1LL << 31))
     return (int)cudaErrorInvalidValue;  // the kv copies' 32-bit offsets
   if (dtype == 1)
-    return launch_bf16(q, k, v, out, B, S, H, K, hd, causal, window, scale,
-                       s);
+    return launch_bf16(q, k, v, out, B, S, T, H, K, hd, causal, window,
+                       scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

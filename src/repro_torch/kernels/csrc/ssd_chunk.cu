@@ -68,7 +68,24 @@
 // Shared memory: C_l [64][68], 2 B_s slots [32][68], per head S^T [32][68]
 // and 2 xdt slots [32][64], per head cs, dt and the end decays (Lc rounded
 // up to 64 each): 91,136 bytes at Lc 256.
+//
+// The bf16 variant (ssd_intra_chunk_bf16, the model's cfg.ssd_bf16).  No
+// TPU kernel computes it: the reference's models/mamba2.ssd_chunked casts
+// the intra-chunk products' operands to bf16 there, and the port's plain
+// version (kernels/ref.py ssd_intra_chunk_ref with bf16) repeats those
+// casts.  The same kernel, with BF16 set, reads the same fp32 inputs and
+// rounds to bf16 (round to nearest even) exactly where that plain version
+// rounds: xdt, B and C as they are loaded or formed, the decays after their
+// expf, each score, each decayed score and each B * w after its product,
+// and y and the states once at the end of their sums.  Every sum stays fp32
+// in the order above (products of two bf16 values are exact in fp32), so
+// the two differ only where a sum order moves a rounding; chip_smoke.py
+// holds the variant to that plain version within TOL_SSD_BF16 x max|y|, a
+// bound placed by the kernel's and the planted faults' readings in
+// tools/ssd_planted_faults.py.  Tensor cores are later work.  With BF16 unset every rounding is the identity, so the fp32 route
+// keeps its bits.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -87,6 +104,12 @@ constexpr int TILE_B = TS * LDA;
 constexpr int TILE_X = TS * LDX;
 
 __host__ __device__ inline int n_tiles(int Lc) { return (Lc + TL - 1) / TL; }
+
+// v rounded to bf16 and back when R, else v
+template <bool R>
+__device__ __forceinline__ float rb(float v) {
+  return R ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
 
 __host__ __device__ inline size_t smem_floats(int Lc) {
   return (size_t)TILE_C + 2 * (size_t)TILE_B +
@@ -142,7 +165,9 @@ __device__ __forceinline__ void copy_tile(float* dst, int ld,
 }
 
 // dst[r][c] = src[r][c] * w[r] for the TS rows and the quads below `cols`,
-// by one head's 128 threads (t: its index among them)
+// by one head's 128 threads (t: its index among them); RS rounds src and RO
+// the product to bf16
+template <bool RS, bool RO>
 __device__ __forceinline__ void scale_rows(float* dst, const float* src,
                                            int ld, const float* w, int cols,
                                            int t) {
@@ -151,8 +176,9 @@ __device__ __forceinline__ void scale_rows(float* dst, const float* src,
   for (int r = t >> 4; r < TS; r += HT / 16) {
     const float4 v = *reinterpret_cast<const float4*>(src + r * ld + 4 * q);
     const float wr = w[r];
-    *reinterpret_cast<float4*>(dst + r * ld + 4 * q) =
-        make_float4(v.x * wr, v.y * wr, v.z * wr, v.w * wr);
+    *reinterpret_cast<float4*>(dst + r * ld + 4 * q) = make_float4(
+        rb<RO>(rb<RS>(v.x) * wr), rb<RO>(rb<RS>(v.y) * wr),
+        rb<RO>(rb<RS>(v.z) * wr), rb<RO>(rb<RS>(v.w) * wr));
   }
 }
 
@@ -196,7 +222,9 @@ __device__ __forceinline__ void fma_tile(float (&acc)[4][8], const float* A,
   }
 }
 
-// a row of 8 outputs (p = 4 q + j, 32 + 4 q + j) with p < P
+// a row of 8 outputs (p = 4 q + j, 32 + 4 q + j) with p < P, each rounded
+// to bf16 when R
+template <bool R>
 __device__ __forceinline__ void store_row(float* out, const float (&v)[8],
                                           int q, int P) {
 #pragma unroll
@@ -205,16 +233,17 @@ __device__ __forceinline__ void store_row(float* out, const float (&v)[8],
     if (P % 4 == 0) {
       if (p < P)
         *reinterpret_cast<float4*>(out + p) =
-            make_float4(v[4 * hh], v[4 * hh + 1], v[4 * hh + 2],
-                        v[4 * hh + 3]);
+            make_float4(rb<R>(v[4 * hh]), rb<R>(v[4 * hh + 1]),
+                        rb<R>(v[4 * hh + 2]), rb<R>(v[4 * hh + 3]));
     } else {
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        if (p + e < P) out[p + e] = v[4 * hh + e];
+        if (p + e < P) out[p + e] = rb<R>(v[4 * hh + e]);
     }
   }
 }
 
+template <bool BF16>
 __global__ void __launch_bounds__(THREADS, 2)
 ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
            const float* __restrict__ A, const float* __restrict__ Bm,
@@ -270,7 +299,7 @@ ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     scan_cs(cs_h, dts_h, A[h], Lc, lane);
     __syncwarp();
     for (int s = lane; s < RP; s += 32)
-      dend_h[s] = s < Lc ? expf(cs_h[Lc - 1] - cs_h[s]) : 0.f;
+      dend_h[s] = s < Lc ? rb<BF16>(expf(cs_h[Lc - 1] - cs_h[s])) : 0.f;
   }
 
   // y / states register tile of this head: rows r0..r0+3, p quads q, q + 8
@@ -298,9 +327,11 @@ ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                       xh[e] + s1 * xstride, xstride, r1, P, vec);
       cp_commit();
     }
-    if (mine) scale_rows(Xk, Xk, LDX, dts_h + s0, P, ht);   // xdt = x * dt
+    if (mine)                                               // xdt = x * dt
+      scale_rows<false, BF16>(Xk, Xk, LDX, dts_h + s0, P, ht);
     if (states) {
-      if (mine) scale_rows(St_h, Bk, LDA, dend_h + s0, N, ht);  // B * w
+      if (mine)                                             // B * w
+        scale_rows<BF16, BF16>(St_h, Bk, LDA, dend_h + s0, N, ht);
     } else {
       if (k == 0 && mine && (warp & 3) == 0)
         scan_cs(cs_h, dts_h, A[h], rows, lane);
@@ -323,6 +354,16 @@ ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
           for (int j = 0; j < 4; ++j)
             bv[j] = *reinterpret_cast<const float4*>(Bk + (sr + 8 * j) * LDA +
                                                      4 * n4);
+          if (BF16) {                   // C and B as bf16 operands
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              cv[i] = make_float4(rb<true>(cv[i].x), rb<true>(cv[i].y),
+                                  rb<true>(cv[i].z), rb<true>(cv[i].w));
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              bv[j] = make_float4(rb<true>(bv[j].x), rb<true>(bv[j].y),
+                                  rb<true>(bv[j].z), rb<true>(bv[j].w));
+          }
 #pragma unroll
           for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -351,9 +392,12 @@ ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
             const int la = l0 + lr + i;
-            // the decay only on and below the diagonal, inside the chunk
+            // the decay only on and below the diagonal, inside the chunk;
+            // bf16: the score, the decay and their product each rounded
             v[i] = !skip && sa <= la && la < Lc
-                       ? sc[i][j] * expf(csl[i] - css)
+                       ? (BF16 ? rb<true>(rb<true>(sc[i][j]) *
+                                          rb<true>(expf(csl[i] - css)))
+                               : sc[i][j] * expf(csl[i] - css))
                        : 0.f;
           }
           *reinterpret_cast<float2*>(St + e * TILE_B + s * LDA + lr) =
@@ -373,26 +417,20 @@ ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     float* sb = st + (((size_t)b * Nc + c) * H + h) * N * P;
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      if (r0 + i < N) store_row(sb + (r0 + i) * P, acc[i], q, P);
+      if (r0 + i < N) store_row<BF16>(sb + (r0 + i) * P, acc[i], q, P);
   } else {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int l = l0 + r0 + i;
-      if (l < Lc) store_row(y + ((t0 + l) * H + h) * P, acc[i], q, P);
+      if (l < Lc) store_row<BF16>(y + ((t0 + l) * H + h) * P, acc[i], q, P);
     }
   }
 }
 
-}  // namespace
-
-extern "C" int ssd_intra_chunk_max_np() { return NP_MAX; }
-extern "C" int ssd_intra_chunk_max_chunk() { return LC_MAX; }
-
-// Launches on `stream`; returns cudaGetLastError() (0 = launched).
-extern "C" int ssd_intra_chunk(const void* x, const void* dt, const void* A,
-                               const void* Bm, const void* Cm, void* y,
-                               void* st, int B, int S, int H, int G, int N,
-                               int P, int Lc, void* stream) {
+template <bool BF16>
+int launch(const void* x, const void* dt, const void* A, const void* Bm,
+           const void* Cm, void* y, void* st, int B, int S, int H, int G,
+           int N, int P, int Lc, void* stream) {
   if (B <= 0 || S <= 0) return 0;
   if (H <= 0 || G <= 0 || H % G != 0 || N <= 0 || N > NP_MAX || P <= 0 ||
       P > NP_MAX || Lc <= 0 || Lc > LC_MAX || S % Lc != 0 ||
@@ -406,7 +444,7 @@ extern "C" int ssd_intra_chunk(const void* x, const void* dt, const void* A,
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   if (smem > 48 * 1024 && (dev >= 64 || smem > granted[dev])) {
-    e = cudaFuncSetAttribute(ssd_kernel,
+    e = cudaFuncSetAttribute(ssd_kernel<BF16>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
     if (e != cudaSuccess) return (int)e;
@@ -417,12 +455,36 @@ extern "C" int ssd_intra_chunk(const void* x, const void* dt, const void* A,
                    ((uintptr_t)x | (uintptr_t)Bm | (uintptr_t)Cm) % 16 == 0;
   const dim3 grid((unsigned)((n_tiles(Lc) + 1) * G * ((H / G + 1) / 2)),
                   S / Lc, B);
-  ssd_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+  ssd_kernel<BF16><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(A), static_cast<const float*>(Bm),
       static_cast<const float*>(Cm), static_cast<float*>(y),
       static_cast<float*>(st), S, H, G, N, P, Lc, (int)vec);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int ssd_intra_chunk_max_np() { return NP_MAX; }
+extern "C" int ssd_intra_chunk_max_chunk() { return LC_MAX; }
+
+// Launches on `stream`; returns cudaGetLastError() (0 = launched).
+extern "C" int ssd_intra_chunk(const void* x, const void* dt, const void* A,
+                               const void* Bm, const void* Cm, void* y,
+                               void* st, int B, int S, int H, int G, int N,
+                               int P, int Lc, void* stream) {
+  return launch<false>(x, dt, A, Bm, Cm, y, st, B, S, H, G, N, P, Lc,
+                       stream);
+}
+
+// The bf16 variant (the header's last paragraph): the same interface, the
+// same fp32 tensors in and out.
+extern "C" int ssd_intra_chunk_bf16(const void* x, const void* dt,
+                                    const void* A, const void* Bm,
+                                    const void* Cm, void* y, void* st, int B,
+                                    int S, int H, int G, int N, int P, int Lc,
+                                    void* stream) {
+  return launch<true>(x, dt, A, Bm, Cm, y, st, B, S, H, G, N, P, Lc, stream);
 }
 
 extern "C" const char* ssd_intra_chunk_error_string(int code) {

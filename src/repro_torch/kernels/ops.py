@@ -309,14 +309,17 @@ def int8_matmul(x, w_q, scale, b, *, act: str = "none"):
 # ---------------------------------------------------------------------------
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """q (B, S, H, hd), k/v (B, S, K, hd) [model layout] -> (B, S, H, hd):
+    """q (B, S, H, hd), k/v (B, T, K, hd) [model layout] -> (B, S, H, hd):
     one flash-attention launch on CUDA; on the CPU
     ``ref.flash_attention_model`` (``flash_attention_ref`` with the kv heads
-    expanded)."""
+    expanded).  T = S for self-attention; a key length of its own (the
+    VLM's cross-attention to its image tokens) only with ``causal=False``
+    and ``window=0``, else ``ValueError``."""
     H = q.shape[2]
     if k.shape[2] == 0 or H % k.shape[2]:
         raise ValueError(f"flash_attention: {k.shape[2]} kv heads do not "
                          f"divide {H} heads")
+    ref.check_key_length(q.shape[1], k.shape[1], causal, window)
     if not _on_cuda(q, "flash_attention"):
         return ref.flash_attention_model(q, k, v, causal=causal,
                                          window=window)
@@ -359,19 +362,13 @@ def ssd_intra_chunk(x, dt, A, Bm, Cm, chunk: int, *, bf16: bool = False):
     (B, S, H), A (H,), Bm/Cm (B, S, G, N), ``chunk`` dividing S -> (y_intra
     (B, S, H, P), states (B, S // chunk, H, N, P)), fp32.  One SSD kernel
     launch on CUDA; on the CPU ``ref.ssd_intra_chunk_ref``.  ``bf16`` is
-    ``cfg.ssd_bf16``, an opt-in precision variant that only the plain
-    version has so far: on the card it raises rather than run the fp32
-    kernel in its place."""
+    ``cfg.ssd_bf16``, the opt-in precision variant: the kernel's bf16
+    variant on CUDA, the plain version's bf16 route on the CPU."""
     if not _on_cuda(x, "ssd_intra_chunk"):
         return ref.ssd_intra_chunk_ref(x, dt, A, Bm, Cm, chunk, bf16=bf16)
-    if bf16:
-        raise NotImplementedError(
-            "ssd_intra_chunk: the bf16 SSD (cfg.ssd_bf16) has no kernel on "
-            "the card yet; it comes with its own bound (ROADMAP.md, Queue 1, "
-            "kernel speed)")
     _refuse_grad("ssd_intra_chunk", x, dt, A, Bm, Cm)
     from repro_torch.kernels import ssd_chunk
     out = ssd_chunk.launch(*(t.contiguous() for t in (x, dt, A, Bm, Cm)),
-                           int(chunk))
+                           int(chunk), bf16=bool(bf16))
     LAUNCHES["ssd_intra_chunk"] += 1
     return out

@@ -151,17 +151,30 @@ def int8_matmul_ref(x, w_q, scale, b):
     return x @ (w_q.to(torch.float32) * scale[None, :]) + b
 
 
+def check_key_length(S: int, T: int, causal: bool, window: int) -> None:
+    """A key length of its own (T != S) only for full attention: the causal
+    mask and the window compare a query's position with a key's, which
+    only self-attention shares."""
+    if T != S and (causal or window):
+        raise ValueError(f"flash_attention: {T} keys for {S} queries needs "
+                         f"causal=False and window=0, got causal={causal} "
+                         f"window={window}")
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
-    """q/k/v (B, H, S, hd) -> (B, H, S, hd), softmax in fp32
-    (``repro.kernels.ref.flash_attention_ref``): mask ``j <= i`` when
+    """q (B, H, S, hd), k/v (B, H, T, hd) -> (B, H, S, hd), softmax in
+    fp32 (``repro.kernels.ref.flash_attention_ref``): mask ``j <= i`` when
     causal and ``i - j < window`` when ``window`` > 0; the probabilities
-    are cast to q's dtype before the product with v, as the reference."""
-    S, hd = q.shape[2], q.shape[-1]
+    are cast to q's dtype before the product with v, as the reference.  A
+    key length of its own (T != S) takes neither mask: it is the
+    reference's ``_sdpa`` with a zero bias (the VLM's cross-attention)."""
+    S, T, hd = q.shape[2], k.shape[2], q.shape[-1]
+    check_key_length(S, T, causal, window)
     scores = torch.einsum("bhsd,bhtd->bhst", q, k).to(torch.float32)
     scores = scores / math.sqrt(hd)
     i = torch.arange(S, device=q.device)[:, None]
-    j = torch.arange(S, device=q.device)[None, :]
-    ok = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    j = torch.arange(T, device=q.device)[None, :]
+    ok = torch.ones((S, T), dtype=torch.bool, device=q.device)
     if causal:
         ok &= j <= i
     if window:
@@ -206,7 +219,7 @@ def expand_heads(t: torch.Tensor, H: int) -> torch.Tensor:
 
 def flash_attention_model(q, k, v, *, causal: bool = True, window: int = 0):
     """``flash_attention_ref`` in the model's layout: q (B, S, H, hd), k/v
-    (B, S, K, hd) with K dividing H -> (B, S, H, hd)."""
+    (B, T, K, hd) with K dividing H -> (B, S, H, hd)."""
     H = q.shape[2]
     qt, kt, vt = (t.transpose(1, 2) for t in
                   (q, expand_heads(k, H), expand_heads(v, H)))

@@ -8,8 +8,12 @@ tril(exp(cs_l - cs_s))``, and the chunk-final states ``B^T diag(exp(cs_end
 (B, S, H), Bm/Cm (B, S, G, N), head h on group h // (H // G)), so the
 reference's transposes and its per-head repeat of B and C are never
 materialised, and writes ``y_intra`` in (B, S, H, P) and the states in (B,
-S // Lc, H, N, P).  The public wrapper, which dispatches CPU tensors to the
-plain version, is ``kernels.ops.ssd_intra_chunk``.
+S // Lc, H, N, P).  ``bf16`` launches the kernel's bf16 variant
+(``cfg.ssd_bf16``): the same fp32 tensors in and out, the products'
+operands and results rounded to bf16 where the plain version
+(``ref.ssd_intra_chunk_ref(..., bf16=True)``) rounds them.  The public
+wrapper, which dispatches CPU tensors to the plain version, is
+``kernels.ops.ssd_intra_chunk``.
 """
 from __future__ import annotations
 
@@ -26,8 +30,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.library("ssd_chunk")
-    lib.ssd_intra_chunk.argtypes = [_P] * 7 + [_I] * 7 + [_P]
-    lib.ssd_intra_chunk.restype = _I
+    for fn in (lib.ssd_intra_chunk, lib.ssd_intra_chunk_bf16):
+        fn.argtypes = [_P] * 7 + [_I] * 7 + [_P]
+        fn.restype = _I
     lib.ssd_intra_chunk_max_np.restype = _I
     lib.ssd_intra_chunk_max_chunk.restype = _I
     lib.ssd_intra_chunk_error_string.argtypes = [_I]
@@ -35,11 +40,12 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def launch(x, dt, A, Bm, Cm, Lc: int):
+def launch(x, dt, A, Bm, Cm, Lc: int, *, bf16: bool = False):
     """One launch on the current stream.  x (B, S, H, P), dt (B, S, H), A
     (H,), Bm/Cm (B, S, G, N) with G dividing H and ``Lc`` dividing S; all
     fp32, contiguous CUDA tensors on one device.  Returns ``(y_intra (B, S,
-    H, P), states (B, S // Lc, H, N, P))``, fp32."""
+    H, P), states (B, S // Lc, H, N, P))``, fp32; with ``bf16`` from the
+    bf16 variant."""
     if x.dim() != 4 or Bm.dim() != 4:
         raise ValueError(f"ssd_intra_chunk: x must be (B, S, H, P) and Bm "
                          f"(B, S, G, N), got {tuple(x.shape)} and "
@@ -67,8 +73,9 @@ def launch(x, dt, A, Bm, Cm, Lc: int):
     states = torch.empty((B, S // Lc, H, N, P), dtype=f32, device=dev)
     if y.numel() == 0:
         return y, states.zero_()
+    fn = lib.ssd_intra_chunk_bf16 if bf16 else lib.ssd_intra_chunk
     with torch.cuda.device(dev):
-        rc = lib.ssd_intra_chunk(
+        rc = fn(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), y.data_ptr(), states.data_ptr(), B, S, H, G, N,
             P, int(Lc), torch.cuda.current_stream().cuda_stream)

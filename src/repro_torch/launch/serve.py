@@ -15,8 +15,10 @@ Run:  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 
 The engine serves the families with a KV cache, dense and MoE
 (``kimi-k2-1t-a32b`` only as ``--smoke``: 1.04e12 params fit no card);
-``--arch hubert-xlarge`` and the zamba2 hybrid are refused before any
-weight is made, with the reference engine's reason.
+``--arch hubert-xlarge``, the zamba2 hybrid and the VLM are refused
+before any weight is made, with the reference engine's reason (the VLM
+serves through ``serve/decode.py``'s ``prefill_step`` and
+``make_decode_step`` from ``M.init_cache(..., image_embeds=)``).
 
 The flags are the reference CLI's (``repro.launch.serve``) plus
 ``--device`` (default ``cuda``; a host without a card refuses it),

@@ -9,11 +9,17 @@ Run:  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu
           --arch internlm2-1.8b --steps 20 --batch 8 --seq 128   # the card
       PYTHONPATH=src python -m repro_torch.launch.train \
           --arch qwen3-moe-30b-a3b --layers 2 --steps 20   # full width
+      PYTHONPATH=src python -m repro_torch.launch.train \
+          --arch llama-3.2-vision-11b --smoke --device cpu
 
 ``--layers N`` cuts the config's depth (a model of 30.5 B params does not
-train with AdamW on one 80 GB card).  ``--arch hubert-xlarge`` is refused
-with the reference's message: the audio encoder trains on the frame
-objective (``train.loop.task_loss``), not the token stream.
+train with AdamW on one 80 GB card); for the VLM it must be a multiple of
+``cross_attn_period`` (whole groups of self blocks and their cross block).
+``--arch hubert-xlarge`` is refused with the reference's message: the
+audio encoder trains on the frame objective (``train.loop.task_loss``), not
+the token stream.  The VLM's batches carry zero ``image_embeds`` (B,
+n_image_tokens, d_model), as the reference's CLI feeds them: its cross
+blocks then add nothing and their gates get no gradient.
 
 Params are drawn in ``cfg.dtype`` from a ``torch.Generator`` seeded 0 on
 the device.  The optimizer steps (``train.loop.make_train_step``, AdamW)
@@ -75,6 +81,12 @@ def main(argv=None) -> int:
         raise SystemExit("use launch/train for LM families; hubert trains "
                          "via the masked-frame objective in tests/examples")
     if args.layers:
+        if cfg.family == "vlm" and args.layers % cfg.cross_attn_period:
+            g = cfg.cross_attn_period
+            raise SystemExit(
+                f"--layers {args.layers}: {cfg.name} stacks its layers in "
+                f"groups of {g} ({g - 1} self blocks and one cross block), "
+                f"so --layers must be a multiple of {g}")
         cfg = cfg.with_(n_layers=args.layers)
     fns = make_train_step(cfg, AdamW(lr=args.lr))
     params, opt = fns.init(torch.Generator(device=device).manual_seed(0))
@@ -83,7 +95,12 @@ def main(argv=None) -> int:
         torch.cuda.reset_peak_memory_stats(device)
 
     def full_batch(tokens):
-        return {"tokens": torch.from_numpy(tokens).to(device)}
+        b = {"tokens": torch.from_numpy(tokens).to(device)}
+        if cfg.family == "vlm":
+            b["image_embeds"] = torch.zeros(
+                (args.batch, cfg.n_image_tokens, cfg.d_model),
+                dtype=torch.float32, device=device)
+        return b
 
     def eval_loss(b) -> float:
         with torch.no_grad():

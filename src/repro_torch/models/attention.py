@@ -1,5 +1,5 @@
-"""GQA self-attention with KV-cache decode (a copy of
-``repro.models.attention``; cross-attention comes with the VLM family).
+"""GQA self-attention and cross-attention with KV-cache decode (a copy of
+``repro.models.attention``).
 
 Decode uses a slot-position cache: ``k/v`` of shape (B, W, K, hd) plus an
 int32 ``slot_pos`` (W,) recording the absolute position written in each
@@ -35,11 +35,23 @@ to ``flash_attention_ref``, the causal ``_sdpa``.  ``attn_chunk`` and
 ``softmax_bf16`` are memory and precision options of the plain route; the
 kernels hold no (S, S) scores and keep the softmax in fp32.
 
+Cross-attention (the VLM's gated cross blocks: S text positions attend
+to T image tokens, no mask, no RoPE) is the reference's ``_sdpa`` with a
+zero bias.  On the card without a gradient it takes the kernels too:
+``cross_attention`` is one non-causal flash launch with a key length of its
+own (T = 1600 at llama-3.2-vision-11b), and ``decode_cross_attention`` one
+decode-attention launch over the image K/V, read as a slot cache whose
+every slot is valid (``_all_slots``: slot_pos 0..T-1 at pos T-1, no
+window).  On the CPU and under autograd both are ``_sdpa``, whatever
+``cfg.use_flash_kernel`` says, as the reference's cross-attention ignores
+it.
+
 The cache is updated in place (the reference returns a new one): the
 returned ``KVCache`` holds the same tensors as the one passed in.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -59,6 +71,8 @@ class KVCache(NamedTuple):
 
 
 def schema_attention(cfg: ModelConfig) -> dict:
+    """The q/k/v/o projections (a cross block's too: the same leaves, as in
+    the reference)."""
     d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     kv_tp = None if cfg.replicate_kv else "tp"
     return {
@@ -221,3 +235,62 @@ def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
         bias = torch.where(valid, 0.0, NEG_INF).to(torch.float32)  # (W,)
         out = _sdpa(q, _gqa_expand(k, H, K), _gqa_expand(v, H, K), bias)
     return out.reshape(B, 1, H * hd) @ p["wo"], cache
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (the VLM's image layers)
+# ---------------------------------------------------------------------------
+
+def cross_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                    kv_feats: torch.Tensor) -> torch.Tensor:
+    """x: (B,S,d) attends to kv_feats (B,T,d).  No mask, no rope.  On the
+    card without a gradient one flash launch at (S, T); else ``_sdpa``
+    with a zero bias (module docstring)."""
+    B, S, _ = x.shape
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = _split_heads(x @ p["wq"], H, hd)
+    k, v = cross_kv(p, cfg, kv_feats)
+    if x.is_cuda and not needs_grad(q, k, v):
+        out = kops.flash_attention(q, k, v, causal=False)
+    else:
+        out = _sdpa(q, _gqa_expand(k, H, K), _gqa_expand(v, H, K), 0.0)
+    return out.reshape(B, S, H * hd) @ p["wo"]
+
+
+class CrossKV(NamedTuple):
+    k: torch.Tensor   # (B, T, K, hd), or (G, B, T, K, hd) stacked
+    v: torch.Tensor
+
+
+def cross_kv(p: dict, cfg: ModelConfig, kv_feats: torch.Tensor) -> CrossKV:
+    K, hd = cfg.n_kv_heads, cfg.hd
+    return CrossKV(_split_heads(kv_feats @ p["wk"], K, hd),
+                   _split_heads(kv_feats @ p["wv"], K, hd))
+
+
+@functools.cache
+def _all_slots(T: int, device: torch.device) -> torch.Tensor:
+    """slot_pos 0..T-1: read at pos T-1 without a window, every slot of
+    the image K/V is valid, so the decode kernel masks nothing.  Made once
+    per (T, device)."""
+    return torch.arange(T, dtype=torch.int32, device=device)
+
+
+def decode_cross_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                           ckv: CrossKV) -> torch.Tensor:
+    """One-token cross-attention to the image K/V: x (B, 1, d) ->
+    (B, 1, d).  On the card without a gradient one decode-attention launch
+    over ``ckv`` as an all-valid slot cache; else ``_sdpa`` with a zero
+    bias."""
+    B = x.shape[0]
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = _split_heads(x @ p["wq"], H, hd)
+    if x.is_cuda and not needs_grad(q, ckv.k, ckv.v):
+        T = ckv.k.shape[1]
+        out = kops.decode_attention(q[:, 0], ckv.k, ckv.v,
+                                    _all_slots(T, ckv.k.device),
+                                    T - 1)[:, None]
+    else:
+        out = _sdpa(q, _gqa_expand(ckv.k, H, K), _gqa_expand(ckv.v, H, K),
+                    0.0)
+    return out.reshape(B, 1, H * hd) @ p["wo"]

@@ -1,14 +1,14 @@
 """Model dispatch: one entry point per family (a copy of
 ``repro.models.model``).  The port has the dense and MoE decoders, the
-encoder-only audio stack and the zamba2 hybrid; the VLM and xLSTM raise
-``NotImplementedError`` until their slices (ROADMAP.md, Queue 1 item 9).
+encoder-only audio stack, the zamba2 hybrid and the VLM; the xLSTM raises
+``NotImplementedError`` until its slice (ROADMAP.md, Queue 1 item 9).
 
 Public surface:
   schema(cfg)                      -> ParamDef tree
   hidden(params, cfg, inputs)      -> (B,S,d) final hidden states, moe aux
   logits(params, cfg, inputs)      -> (B,S,V) logits, moe aux
   supports_decode(cfg)             -> False for the encoder-only audio stack
-  init_cache(params, cfg, batch, n_slots) -> decode cache
+  init_cache(params, cfg, batch, n_slots, image_embeds=None) -> cache
   decode(params, cfg, token, cache, pos, window) -> (logits (B,V), cache)
   count_params_analytic / count_active_params
 """
@@ -20,15 +20,17 @@ from repro_torch.sharding.policy import DTYPES, leaves, param_count
 
 
 def _check(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "audio", "hybrid"):
+    if cfg.family not in ("dense", "moe", "audio", "hybrid", "vlm"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
-            f"has the dense and MoE decoders, the audio encoder and the "
-            f"zamba2 hybrid (ROADMAP.md, Queue 1 item 9)")
+            f"has the dense and MoE decoders, the audio encoder, the "
+            f"zamba2 hybrid and the VLM (ROADMAP.md, Queue 1 item 9)")
 
 
 def schema(cfg: ModelConfig):
     _check(cfg)
+    if cfg.family == "vlm":
+        return transformer.schema_vlm(cfg)
     if cfg.family == "hybrid":
         return hybrid.schema_zamba(cfg)
     return transformer.schema_decoder(cfg)   # dense | moe | audio
@@ -36,6 +38,8 @@ def schema(cfg: ModelConfig):
 
 def hidden(params, cfg: ModelConfig, inputs: dict):
     _check(cfg)
+    if cfg.family == "vlm":
+        return transformer.vlm_hidden(params, cfg, inputs)
     if cfg.family == "hybrid":
         return hybrid.zamba_hidden(params, cfg, inputs)
     return transformer.decoder_hidden(params, cfg, inputs)
@@ -43,6 +47,8 @@ def hidden(params, cfg: ModelConfig, inputs: dict):
 
 def logits(params, cfg: ModelConfig, inputs: dict):
     _check(cfg)
+    if cfg.family == "vlm":
+        return transformer.vlm_logits(params, cfg, inputs)
     if cfg.family == "hybrid":
         return hybrid.zamba_logits(params, cfg, inputs)
     return transformer.decoder_logits(params, cfg, inputs)
@@ -52,13 +58,22 @@ def supports_decode(cfg: ModelConfig) -> bool:
     return cfg.family != "audio"
 
 
-def init_cache(params, cfg: ModelConfig, batch: int, n_slots: int):
+def init_cache(params, cfg: ModelConfig, batch: int, n_slots: int,
+               image_embeds=None):
     """The decode cache in ``cfg.dtype``, on the device of ``params``; the
-    audio encoder has none (``supports_decode``)."""
+    audio encoder has none (``supports_decode``).  The VLM's needs its
+    ``image_embeds`` (B, T, d), whose K/V it projects once; ``batch`` is
+    then theirs."""
     _check(cfg)
     transformer.require_decode(cfg)
     device = leaves(params)[0].device
     dtype = DTYPES[cfg.dtype]
+    if cfg.family == "vlm":
+        if image_embeds is None:
+            raise ValueError(f"{cfg.name}: the VLM's decode cache needs "
+                             f"image_embeds")
+        return transformer.vlm_init_cache(params, cfg, image_embeds, n_slots,
+                                          dtype, device=device)
     if cfg.family == "hybrid":
         return hybrid.zamba_init_cache(cfg, batch, n_slots, dtype,
                                        device=device)
@@ -68,6 +83,8 @@ def init_cache(params, cfg: ModelConfig, batch: int, n_slots: int):
 
 def decode(params, cfg: ModelConfig, token, cache, pos, window: int = 0):
     _check(cfg)
+    if cfg.family == "vlm":
+        return transformer.vlm_decode(params, cfg, token, cache, pos, window)
     if cfg.family == "hybrid":
         return hybrid.zamba_decode(params, cfg, token, cache, pos, window)
     return transformer.decoder_decode(params, cfg, token, cache, pos, window)

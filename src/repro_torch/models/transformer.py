@@ -1,7 +1,6 @@
-"""The decoder stack: dense and MoE decoders and the bidirectional
-encoder-only (audio) stack (a copy of those halves of
-``repro.models.transformer``; the VLM's cross-attention groups come with
-its slice, ROADMAP Queue 1 item 9).
+"""Transformer stacks: dense and MoE decoders, the bidirectional
+encoder-only (audio) stack and the VLM's cross-attention groups
+(llama-3.2-vision style), a copy of ``repro.models.transformer``.
 
 Params keep the reference's stacked ``(L, ...)`` leaves and ``(d_in,
 d_out)`` weight layout, so a JAX parameter tree crosses with
@@ -14,8 +13,21 @@ Audio (``cfg.family == "audio"``, hubert) takes pre-embedded frames
 Its attention is bidirectional: on the card the flash kernel with
 ``causal=False``; on the CPU ``_sdpa`` with a zero bias, as the
 reference (whose flash path needs ``cfg.causal``).
+
+The VLM (``cfg.family == "vlm"``) stacks its layers two deep: G =
+n_layers / cross_attn_period groups, each of ``cross_attn_period - 1``
+self blocks (leaves (G, g-1, ...)) and one gated cross block (leaves (G,
+...)) whose ``tanh(gate)`` scales its cross-attention to the image
+embeddings ``inputs["image_embeds"]`` (B, T, d).  Python loops over the
+groups and their self blocks take the place of the two scans; the self
+blocks are ``block_fwd`` / ``block_decode``, so their attention keeps its
+flash and decode launches, and the cross blocks take theirs
+(``attention.cross_attention``).  ``VLMCache`` keeps the reference's
+layout and is updated in place, like the dense cache.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -25,11 +37,10 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models.common import (causal_mask, embed, norm_apply, rope,
                                        schema_embed, schema_norm, unembed)
-from repro_torch.sharding.policy import DTYPES, stack
+from repro_torch.sharding.policy import DTYPES, ParamDef, stack
 
 # the families whose slices are still to come (ROADMAP.md, Queue 1 item 9)
-_LATER = {"vlm": "the VLM's slice (cross-attention, VLMCache)",
-          "ssm": "the xLSTM slice (models/xlstm.py)"}
+_LATER = {"ssm": "the xLSTM slice (models/xlstm.py)"}
 
 
 def _ported(cfg: ModelConfig) -> None:
@@ -228,5 +239,134 @@ def decoder_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
     for lp, k, v, sp in zip(_layers(params["blocks"], L), cache.k.unbind(0),
                             cache.v.unbind(0), cache.slot_pos.unbind(0)):
         x, _ = block_decode(lp, cfg, x, attn.KVCache(k, v, sp), pos, window)
+    x = norm_apply(params["ln_f"], x, cfg.norm)
+    return unembed(params["embed"], x)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# VLM: groups of (cross_attn_period - 1) self blocks + 1 cross block
+# ---------------------------------------------------------------------------
+
+def schema_cross_block(cfg: ModelConfig) -> dict:
+    return {
+        "ln1": schema_norm(cfg.d_model, cfg.norm),
+        "xattn": attn.schema_attention(cfg),
+        "gate": ParamDef((1,), (None,), init="zeros", dtype="float32"),
+        "ln2": schema_norm(cfg.d_model, cfg.norm),
+        "mlp": ffn_mod.schema_ffn(cfg),
+    }
+
+
+def _cross_groups(cfg: ModelConfig) -> int:
+    """G, the number of cross groups (the reference's assertion, raised)."""
+    g = cfg.cross_attn_period
+    if g <= 0 or cfg.n_layers % g:
+        raise ValueError(f"{cfg.name}: vlm layers must tile into cross "
+                         f"groups: {cfg.n_layers} layers, cross_attn_period "
+                         f"{g}")
+    return cfg.n_layers // g
+
+
+def schema_vlm(cfg: ModelConfig) -> dict:
+    G = _cross_groups(cfg)
+    group = {
+        "selfs": stack(schema_block(cfg), cfg.cross_attn_period - 1),
+        "cross": schema_cross_block(cfg),
+    }
+    return {
+        "embed": schema_embed(cfg.vocab_size, cfg.d_model),
+        "groups": stack(group, G),
+        "ln_f": schema_norm(cfg.d_model, cfg.norm),
+    }
+
+
+def _vlm_groups(params: dict, cfg: ModelConfig) -> list:
+    """The groups' stacked leaves unstacked on both axes: G pairs of (the
+    ``cross_attn_period - 1`` self blocks' trees of views, the cross
+    block's tree of views)."""
+    return [(_layers(gp["selfs"], cfg.cross_attn_period - 1), gp["cross"])
+            for gp in _layers(params["groups"], _cross_groups(cfg))]
+
+
+def _gated_cross(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                 attend) -> torch.Tensor:
+    """The cross block around ``attend(xattn params, h)``: the gated
+    cross-attention, then the MLP; the gate is ``tanh`` in fp32 cast to
+    x's dtype, as the reference."""
+    h = norm_apply(p["ln1"], x, cfg.norm)
+    gate = torch.tanh(p["gate"]).to(x.dtype)
+    x = x + gate * attend(p["xattn"], h)
+    h = norm_apply(p["ln2"], x, cfg.norm)
+    return x + ffn_mod.ffn(p["mlp"], cfg, h)
+
+
+def _cross_block_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                     img: torch.Tensor) -> torch.Tensor:
+    return _gated_cross(p, cfg, x, lambda pa, h: attn.cross_attention(
+        pa, cfg, h, img))
+
+
+def vlm_hidden(params: dict, cfg: ModelConfig, inputs: dict):
+    """Tokens and image embeddings -> (final hidden states (B, S, d), aux
+    0.0: the reference drops the self blocks' aux too)."""
+    tokens, img = inputs["tokens"], inputs["image_embeds"]
+    B, S = tokens.shape
+    x = embed(params["embed"], tokens).to(DTYPES[cfg.dtype])
+    img = img.to(x.dtype)
+    positions = _positions(B, S, x.device)
+    for selfs, cross in _vlm_groups(params, cfg):
+        for lp in selfs:
+            x, _ = block_fwd(lp, cfg, x, positions, cfg.sliding_window)
+        x = _cross_block_fwd(cross, cfg, x, img)
+    x = norm_apply(params["ln_f"], x, cfg.norm)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def vlm_logits(params: dict, cfg: ModelConfig, inputs: dict):
+    x, aux = vlm_hidden(params, cfg, inputs)
+    return unembed(params["embed"], x), aux
+
+
+class VLMCache(NamedTuple):
+    k: torch.Tensor         # (G, g-1, B, W, K, hd)
+    v: torch.Tensor
+    slot_pos: torch.Tensor  # (G, g-1, W) int32, -1 = empty
+    xk: torch.Tensor        # (G, B, T, K, hd)
+    xv: torch.Tensor
+
+
+def vlm_init_cache(params: dict, cfg: ModelConfig,
+                   image_embeds: torch.Tensor, n_slots: int, dtype,
+                   device="cuda") -> VLMCache:
+    """Empty self-attention caches for every self block and each cross
+    block's image K/V, projected once from ``image_embeds`` (B, T, d) cast
+    to ``dtype`` on ``device``."""
+    G, g = _cross_groups(cfg), cfg.cross_attn_period
+    B = image_embeds.shape[0]
+    c = attn.init_cache(cfg, B, n_slots, dtype, device=device)
+    img = image_embeds.to(device=device, dtype=dtype)
+    kvs = [attn.cross_kv(cross["xattn"], cfg, img)
+           for _, cross in _vlm_groups(params, cfg)]
+    tile = lambda t: t.expand((G, g - 1) + tuple(t.shape)).clone()
+    return VLMCache(tile(c.k), tile(c.v), tile(c.slot_pos),
+                    torch.stack([kv.k for kv in kvs]),
+                    torch.stack([kv.v for kv in kvs]))
+
+
+def vlm_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
+               cache: VLMCache, pos: int, window: int):
+    """token: (B,) int -> (logits (B, vocab), cache), the cache updated in
+    place (one new K/V row per self block at ``pos``; the image K/V are
+    read only)."""
+    x = embed(params["embed"], token[:, None]).to(DTYPES[cfg.dtype])
+    pos = int(pos)
+    for gi, (selfs, cross) in enumerate(_vlm_groups(params, cfg)):
+        for j, lp in enumerate(selfs):
+            x, _ = block_decode(lp, cfg, x, attn.KVCache(
+                cache.k[gi, j], cache.v[gi, j], cache.slot_pos[gi, j]), pos,
+                window)
+        ckv = attn.CrossKV(cache.xk[gi], cache.xv[gi])
+        x = _gated_cross(cross, cfg, x, lambda pa, h: attn.
+                         decode_cross_attention(pa, cfg, h, ckv))
     x = norm_apply(params["ln_f"], x, cfg.norm)
     return unembed(params["embed"], x)[:, 0], cache

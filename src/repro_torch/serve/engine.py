@@ -52,7 +52,8 @@ class EngineStats:
 
 def require_kv_cache_family(cfg: ModelConfig) -> None:
     """The engine serves the KV-cache families, dense and MoE (the
-    reference's assertion, with its words)."""
+    reference's assertion, with its words); the hybrid, the VLM and the
+    audio encoder are refused, as the reference refuses them."""
     if cfg.family not in ("dense", "moe"):
         raise ValueError(f"{cfg.name}: engine supports KV-cache families; "
                          f"SSM/hybrid use decode() (family {cfg.family!r})")

@@ -1,5 +1,6 @@
 """Training step factory for the LM families the port has (the dense and
-MoE decoders, the zamba2 hybrid and the encoder-only audio stack): LM
+MoE decoders, the zamba2 hybrid, the VLM (its batches carry
+``image_embeds``) and the encoder-only audio stack): LM
 cross-entropy (all decoder families), frame cross-entropy (audio), and
 the paper's ``apcvfl_distill`` composite objective (Eq. 5) scaled to a
 sequence backbone.  The port of ``repro.train.loop``.  Both objectives

@@ -312,7 +312,11 @@ BEFORE_REDESIGN = {"lane_mlp_bwd": "ba1cb40fc083caff77ebf5316ec6d49afb092394",
                    "int8_matmul": "ba1cb40fc083caff77ebf5316ec6d49afb092394",
                    "ssd_chunk": "64a7bb6392a75af0ec712db0c0376ad1fab10090",
                    "probe": "64a7bb6392a75af0ec712db0c0376ad1fab10090",
-                   "distill_loss": "76aa2af0a07c532c5a7d90895e92cc22dfd38ae0"}
+                   "distill_loss": "76aa2af0a07c532c5a7d90895e92cc22dfd38ae0",
+                   # flash before its key length of its own: at T = S the
+                   # kernel keeps that commit's bits
+                   "flash_attention":
+                       "1dea1d2980b41282bb87cd42ca6c8f7c193f61c5"}
 
 
 def _library_before(name):
@@ -1150,13 +1154,34 @@ def test_ssd_intra_chunk_matches_plain_on_card(case):
     assert _allclose(y, y_cpu, TOL_SSD) and _allclose(st, st_cpu, TOL_SSD)
 
 
+# the bf16 SSD (cfg.ssd_bf16) vs its plain bf16 version on the card, relative
+# to max|y| (max|states|): chip_smoke.py's TOL_SSD_BF16, placed by the
+# kernel's and the planted faults' readings in tools/ssd_planted_faults.py
+TOL_SSD_BF16 = 5e-3
+
+
 @pytest.mark.gpu
-def test_ssd_bf16_raises_on_card():
+@pytest.mark.parametrize("case", ["zamba2", "ragged grouped", "steep decay",
+                                  "N 30 P 36", "x offset view"])
+def test_ssd_bf16_matches_plain_on_card(case):
+    """``ssd_intra_chunk(..., bf16=True)`` launches the kernel's bf16
+    variant (one launch, no raise) and lies within TOL_SSD_BF16 of the
+    plain bf16 version on the same card tensors; it is another function
+    than the fp32 route, which the fp32 kernel keeps."""
     dev = _card()
-    args = [t.to(dev) for t in _ssd_inputs(np.random.RandomState(12), 1, 64,
-                                            4, 1, 16, 16, False)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.ssd_intra_chunk(*args, 32, bf16=True)
+    args, Lc = _ssd_case(case, 12, dev)
+    ops.reset_launches()
+    y, st = ops.ssd_intra_chunk(*args, Lc, bf16=True)
+    assert ops.LAUNCHES["ssd_intra_chunk"] == 1
+    y_want, st_want = ref.ssd_intra_chunk_ref(*args, Lc, bf16=True)
+    assert y.dtype == st.dtype == torch.float32
+    for got, want in ((y, y_want), (st, st_want)):
+        assert _maxerr(got, want) <= TOL_SSD_BF16 * float(want.abs().max())
+    y32, _ = ops.ssd_intra_chunk(*args, Lc)
+    assert not torch.equal(y32, y)
+    runs = [ops.ssd_intra_chunk(*args, Lc, bf16=True) for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
 
 
 # the SSD against its kernel before the redesign: SSD_CASES, chunks of 64,
@@ -1541,3 +1566,144 @@ def test_hubert_forward_card_against_cpu():
     assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
     assert float(aux) == 0.0
     assert _maxerr(got.cpu(), want) <= 1e-4 * float(want.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the VLM: flash at a key length of its own, decode over the image cache
+# ---------------------------------------------------------------------------
+
+# (B, S, T, H, K, hd): S text rows against T image tokens at
+# llama-3.2-vision-11b's heads (one prompt, and one decode row), and ragged
+# small heads
+FLASH_CROSS = ((1, 256, 1600, 32, 8, 128), (2, 1, 1600, 32, 8, 128),
+               (2, 100, 37, 4, 2, 64), (1, 64, 200, 4, 4, 32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_key_length_of_its_own_on_card(dtype):
+    """k/v of T rows for S queries, non-causal, against the plain version
+    on the same card tensors within the reference's bounds, and bf16 also
+    against the plain version in fp32; a causal or windowed call at T != S
+    raises before any launch."""
+    dev = _card()
+    rng = np.random.RandomState(23)
+    ops.reset_launches()
+    for B, S, T, H, K, hd in FLASH_CROSS:
+        q, k, v = _attn_inputs(rng, dev, dtype, (B, S, H, hd),
+                               (B, T, K, hd), (B, T, K, hd))
+        got = ops.flash_attention(q, k, v, causal=False)
+        want = ref.flash_attention_model(q, k, v, causal=False)
+        assert got.shape == (B, S, H, hd) and got.dtype == dtype
+        assert _allclose(got, want, ATTN_TOL[dtype]), (B, S, T, H, K, hd)
+        if dtype == torch.bfloat16:
+            want = ref.flash_attention_model(q.float(), k.float(), v.float(),
+                                             causal=False)
+            atol, rtol = FLASH_BF16_F32_TOL
+            err = (got.float() - want).abs()
+            assert bool((err <= atol + rtol * want.abs()).all()), \
+                (B, S, T, float(err.max()))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == len(FLASH_CROSS)
+    for causal, window in ((True, 0), (False, 16)):
+        with pytest.raises(ValueError, match="keys for"):
+            ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert ops.LAUNCHES["flash_attention"] == len(FLASH_CROSS)
+
+
+def _flash_before(lib, q, k, v, causal, window):
+    """The flash kernel before its key length of its own, through its C
+    interface (``flash_attention(q, k, v, out, B, S, H, K, hd, causal,
+    window, scale, dtype, stream)``)."""
+    import ctypes
+    import math
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention.argtypes = [P] * 4 + [I] * 7 + [F, I, P]
+    B, S, H, hd = q.shape
+    out = torch.empty_like(q)
+    rc = lib.flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
+        k.shape[2], hd, int(causal), int(window), 1.0 / math.sqrt(hd),
+        {torch.float32: 0, torch.bfloat16: 1}[q.dtype],
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_equals_kernel_before_key_length_on_card(dtype):
+    """At T = S the kernel keeps the bits of the kernel before it took a
+    key length of its own, on both routes, every mask, GQA and MHA, ragged
+    S and the VLM's self-attention (H 32 on K 8)."""
+    dev = _card()
+    before = _library_before("flash_attention")
+    rng = np.random.RandomState(24)
+    for B, S, H, K, hd in ((1, 128, 16, 8, 128), (2, 77, 4, 4, 32),
+                           (1, 300, 8, 2, 80), (2, 512, 32, 8, 128)):
+        q, k, v = _attn_inputs(rng, dev, dtype, (B, S, H, hd),
+                               (B, S, K, hd), (B, S, K, hd))
+        for causal, window in ((True, 0), (True, 100), (False, 0)):
+            got = ops.flash_attention(q, k, v, causal=causal, window=window)
+            want = _flash_before(before, q, k, v, causal, window)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (B, S, H, K, hd, causal, window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_over_the_image_cache_on_card(dtype):
+    """One decode row against the VLM's 1600 image tokens read as a slot
+    cache with every slot valid (G 4: 32 q heads on 8 kv heads), as
+    ``decode_cross_attention`` calls it, against the plain version."""
+    dev = _card()
+    rng = np.random.RandomState(25)
+    W = 1600
+    q, kc, vc = _attn_inputs(rng, dev, dtype, (8, 32, 128), (8, W, 8, 128),
+                             (8, W, 8, 128))
+    sp = torch.arange(W, dtype=torch.int32)
+    _decode_check(dev, dtype, q, kc, vc, sp, W - 1, 0, "image cache")
+
+
+@pytest.mark.gpu
+def test_vlm_smoke_card_matches_cpu():
+    """The VLM smoke (fp32) with nonzero gates and seeded images on the
+    card against the CPU: logits within 1e-4 x max|logit| (one flash
+    launch a block, self and cross), then 8 greedy decode steps from
+    ``init_cache(image_embeds=)`` with identical tokens (one decode launch
+    a block a step)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.serve import build_params
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+    dev = _card()
+    cfg = get_smoke("llama-3.2-vision-11b")
+    params = build_params(cfg, seed=3, device="cpu")
+    rng = np.random.RandomState(26)
+    gate = params["groups"]["cross"]["gate"]
+    params["groups"]["cross"]["gate"] = torch.from_numpy(rng.uniform(
+        0.3, 1.2, tuple(gate.shape)).astype(np.float32))
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 48)).astype(
+        np.int32))
+    img = _randn(rng, 2, cfg.n_image_tokens, cfg.d_model)
+    runs = []
+    for d in (dev, "cpu"):
+        p = tree_map(lambda t: t.to(d), params)
+        ops.reset_launches()
+        with torch.no_grad():
+            full, _ = M.logits(p, cfg, {"tokens": toks.to(d),
+                                        "image_embeds": img.to(d)})
+            cache = M.init_cache(p, cfg, 2, 16, image_embeds=img.to(d))
+            tok, lgs = toks[:, 0].to(d), []
+            for t in range(8):
+                lg, cache = M.decode(p, cfg, tok, cache, t)
+                lgs.append(lg.cpu())
+                tok = torch.argmax(lg, -1)
+        runs.append((full.cpu(), torch.stack(lgs), dict(ops.LAUNCHES)))
+    (fg, dg, lg), (fc, dc, lc) = runs
+    assert lg["flash_attention"] == cfg.n_layers
+    assert lg["decode_attention"] == 8 * cfg.n_layers
+    assert lc["flash_attention"] == lc["decode_attention"] == 0
+    for a, b in ((fg, fc), (dg, dc)):
+        assert _maxerr(a, b) <= 1e-4 * float(b.abs().max())
+    assert torch.equal(dg.argmax(-1), dc.argmax(-1))

@@ -303,7 +303,8 @@ def test_full_config_param_counts_match_without_allocation(arch):
 
 def test_registry_raises_for_unported_families():
     families = {"zamba2-2.7b": "hybrid", "qwen3-moe-30b-a3b": "moe",
-                "kimi-k2-1t-a32b": "moe", "hubert-xlarge": "audio"}
+                "kimi-k2-1t-a32b": "moe", "hubert-xlarge": "audio",
+                "llama-3.2-vision-11b": "vlm"}
     for arch in ARCH_IDS:
         if arch in PORTED:
             assert get_config(arch).family == families.get(arch, "dense")
@@ -311,7 +312,7 @@ def test_registry_raises_for_unported_families():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_config(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.schema(get_smoke("yi-6b").with_(family="vlm"))
+        M.schema(get_smoke("yi-6b").with_(family="ssm"))
 
 
 def test_init_recipes():

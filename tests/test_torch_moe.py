@@ -494,14 +494,15 @@ def test_full_qwen3_builds_with_no_fp32_tensor_past_a_slice(monkeypatch):
 # what the registry and the models still refuse
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "xlstm-350m"])
+# the VLM is ported since; the xLSTM is the one family still refused
+@pytest.mark.parametrize("arch", ["xlstm-350m"])
 def test_registry_still_refuses_the_vlm_and_xlstm(arch):
     for get in (get_config, get_smoke):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get(arch)
 
 
-@pytest.mark.parametrize("family", ["vlm", "ssm"])
+@pytest.mark.parametrize("family", ["ssm"])
 def test_models_refuse_the_vlm_and_xlstm_families(family):
     cfg = get_smoke("qwen3-moe-30b-a3b").with_(family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

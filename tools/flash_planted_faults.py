@@ -51,8 +51,8 @@ FAULTS = {
         "                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),\n"),
     # the diagonal masked: each row loses its own key
     "diagonal key masked": (
-        "        if (!(col < S && (!causal || col <= row) &&",
-        "        if (!(col < S && (!causal || col < row) &&"),
+        "        if (!(col < T && (!causal || col <= row) &&",
+        "        if (!(col < T && (!causal || col < row) &&"),
 }
 
 
