@@ -212,13 +212,50 @@ Phases, in order; any failure ends the run with a non-zero exit:
    card against the CPU with nonzero gates and images at phase 12's
    bounds.  Phase 5 times flash at the cross shape and at the VLM's causal
    self shape, and decode at G 4 over 1024 slots and over the image cache.
+15. xlstm — the xLSTM (no kernel computes it: PyTorch ops on the card):
+   (a) xlstm-350m at full width and depth in bf16 (518,686,888 params,
+   the schema's init): ``prefill_step`` at B 2, S 2048, with the host wall
+   split by block kind (mLSTM, sLSTM; each block synchronised), the card's
+   span by block kind (CUDA events) and one call's device busy share
+   (the profiler's raw events), then greedy decode through
+   ``make_decode_step`` from ``init_cache`` at B 8 (16 prompt tokens fed
+   through decode steps, then 48 generated), profiled; no kernel launches
+   on either path; the same 64 tokens at full depth in fp32 (gates drawn
+   away from their init from a seed, as in every check below) through
+   decode steps against the forward, and ``prefill_step`` on the prompt
+   against the forward at its last position, each within
+   TOL_DECODE_VS_FORWARD x max|logit| (the bf16 forward's agreement with
+   the bf16 decode's tokens is a reading only: in bf16 this random model
+   moves by 0.264 x max|logit| between two chunkings of one prefix on the
+   CPU, ``tools/xlstm_conditioning.py``);
+   (b) one group (7 mLSTM + 1
+   sLSTM blocks) at full width in fp32, weights made once on the CPU:
+   ``prefill_step`` at B 2, S 512 and 8 decode steps give identical tokens
+   on the card and the CPU, logits within TOL_LM x max|logit|, and 512
+   decode steps against the forward on the card within
+   TOL_DECODE_VS_FORWARD x max|logit|; (c) ``launch/train.main`` at full
+   width and depth in bf16 (B 8, S 128, 20 steps: losses finite, the eval
+   loss falls), then the smoke's one step on the card against the CPU
+   with ``cfg.remat`` off and on at phase 12's bounds.
+16. guards — ``repro_torch.analysis.guards`` on the card against
+   ``ANALYSIS_budgets.json``: a warmed VFL dispatch (``predict_active``
+   and the mixed ``predict`` on phase 3's bundle), one epoch of
+   ``training.train`` through the lane-MLP kernels, one xLSTM decode step
+   (one group at full width, bf16) and one warm dense-engine step
+   (internlm2-1.8b at depth 2), each under ``no_host_sync``,
+   ``compile_counter`` and ``cuda_sync_events``
+   (``torch.cuda.set_sync_debug_mode``, each sync attributed to its op):
+   one ``to_host`` copy a
+   dispatch, an epoch and a decode step, as many device->host syncs, no
+   compile; blocking host->device copies reported apart.
 
 Launch counters are zeroed just before each run of a path (serve fp32,
 serve int8, train, probe, lm, each zamba prefill and the zamba decode,
 each card run of phase 9, phase 10's spec files, each runtime stream and
 the fault run, each eval pass and the steps of phase 12, phase 13's
 serve, ``prefill_step``, hubert's calls, eval passes and steps, phase
-14's prefills, its decode, eval passes and steps) and read
+14's prefills, its decode, eval passes and steps, phase 15's prefills,
+decode and checks, which must launch none) and read
 just after; every kernel must have launched on its path.  The last
 lines are a ``details:`` line (every measurement as JSON), the ``kernels``
 JSON, the card's name and power limit, and ``{"ok": true, "device":
@@ -233,10 +270,12 @@ import os
 import subprocess
 import sys
 import tempfile
+import time
 
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+_T0 = time.perf_counter()
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PEAK_FP32_FLOPS = 67e12        # H100 SXM, fp32 on the CUDA cores
@@ -496,6 +535,15 @@ VLM = dict(arch="llama-3.2-vision-11b", prefill=(2, 2048), prefill_calls=2,
 VLM_CHECK = dict(layers=5, prefill=(2, 128), steps=8, dvf=(2, 64))
 # (d) training at full width, one group, bf16 through launch/train
 VLM_TRAIN = dict(layers=5, steps=20, batch=8, seq=128)
+XLSTM = dict(arch="xlstm-350m", prefill=(2, 2048), prefill_calls=1,
+             batch=8, slots=0, prompt=16, new=48, profile_steps=10)
+XLSTM_PARAMS = 518_686_888
+XLSTM_CHECK = dict(layers=8, prefill=(2, 512), steps=8)
+XLSTM_TRAIN = dict(steps=20, batch=8, seq=128)
+
+def _elapsed() -> str:
+    """Seconds since this module was imported."""
+    return f"{time.perf_counter() - _T0:.1f}"
 
 
 def log(msg: str) -> None:
@@ -2072,6 +2120,8 @@ def serve_cell(cell: dict, prefill: tuple, labels: tuple = ()) -> dict:
 
 
 # the port's kernels by the name of their __global__ function
+# substrings of the cuBLAS / CUTLASS kernel names that are GEMMs
+GEMM_NAMES = ("gemm", "gemv", "cutlass", "xmma", "nvjet")
 KERNEL_NAMES = {"decode_kernel": "decode_attention",
                 "flash_kernel": "flash_attention",
                 "ssd_kernel": "ssd_intra_chunk"}
@@ -2116,8 +2166,7 @@ def _profiled(fn, calls: int, labels: tuple = ()) -> dict:
         low = e.name.lower()
         kind = next((v for k, v in KERNEL_NAMES.items() if k in low), None)
         if kind is None:
-            kind = ("gemm" if any(t in low for t in (
-                "gemm", "gemv", "cutlass", "xmma", "nvjet")) else "other")
+            kind = "gemm" if any(t in low for t in GEMM_NAMES) else "other"
         kinds[kind] += us
         names[e.name[:80]] = names.get(e.name[:80], 0.0) + us
     out = {"calls": calls,
@@ -2495,7 +2544,8 @@ def _lockstep_decode(params, cfg, cache, cell: dict, per_step: int,
             "step_ms": step_ms,
             "generated_tokens_per_s": Bd * new / gen_ms * 1e3,
             "launches": counts, "kinds": seen,
-            "first_row_tokens": gen[0].tolist(), "profile": prof}
+            "first_row_tokens": gen[0].tolist(), "generated": gen.tolist(),
+            "profile": prof}
 
 
 def _prefill_then_decode(p, cfg, inputs: dict, steps: int) -> list:
@@ -3960,6 +4010,437 @@ def vlm_train(launches: dict) -> dict:
     return res
 
 
+
+def _xlstm_gates(params, seed: int) -> dict:
+    """Set the gates, in place, from a numpy seed: mLSTM ``w_if`` N(0,
+    0.01) (the init's scale, redrawn), ``b_i`` U(-0.5, 0.5) and ``b_f``
+    U(0.5, 3) (the init's are 0 and 1 everywhere, where a wrong gate bias
+    passes unseen), and the sLSTM bias ``b`` N(0, 0.5) (init 0).  Wider
+    gates make this random model ill-conditioned at full width: with
+    ``w_if`` N(0, 0.05) and ``b_i`` U(-1, 1) the fp32 decode and forward of
+    the same tokens differ by 0.131 x max|logit| on the CPU at 24 layers
+    (2.907e-4 at these; ``tools/xlstm_conditioning.py``), as they would on
+    any device."""
+    import torch
+    rng = np.random.RandomState(seed)
+    ml, sl = params["groups"]["mlstms"], params["groups"]["slstm"]
+    draws = {"w_if": (ml["w_if"], lambda n: rng.randn(*n) * 0.01),
+             "b_i": (ml["b_i"], lambda n: rng.uniform(-0.5, 0.5, n)),
+             "b_f": (ml["b_f"], lambda n: rng.uniform(0.5, 3, n)),
+             "b": (sl["b"], lambda n: rng.randn(*n) * 0.5)}
+    for t, draw in draws.values():
+        t.copy_(torch.from_numpy(draw(tuple(t.shape)).astype(np.float32)))
+    return {k: float(t.abs().max()) for k, (t, _) in draws.items()}
+
+
+@contextlib.contextmanager
+def _xlstm_blocks(synced: bool):
+    """Time the xLSTM's two block kinds in one call, summed by kind into
+    the yielded dict: with ``synced``, each block's host wall, synchronised
+    before and after (``wall_ms``); else each block's span on the card
+    between two CUDA events, no sync (``device_span_ms``, read on exit)."""
+    import time
+    import torch
+    from repro_torch.models import xlstm
+    orig = {"mlstm": xlstm.mlstm_block, "slstm": xlstm.slstm_block}
+    out, pairs = {}, []
+
+    def wrap(kind, fn):
+        def block(p, cfg, x):
+            if not synced:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+                ev[0].record()
+                y = fn(p, cfg, x)
+                ev[1].record()
+                pairs.append((kind, ev))
+                return y
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = fn(p, cfg, x)
+            torch.cuda.synchronize()
+            out[kind] = out.get(kind, 0.0) + (time.perf_counter() - t0) * 1e3
+            return y
+        return block
+    xlstm.mlstm_block = wrap("mlstm", orig["mlstm"])
+    xlstm.slstm_block = wrap("slstm", orig["slstm"])
+    try:
+        yield out
+        torch.cuda.synchronize()
+        for kind, (a, b) in pairs:
+            out[kind] = out.get(kind, 0.0) + a.elapsed_time(b)
+    finally:
+        xlstm.mlstm_block, xlstm.slstm_block = orig["mlstm"], orig["slstm"]
+
+
+def _busy(fn) -> dict:
+    """One call of ``fn`` under the profiler, read from its raw events (a
+    prefill's ~360k events are too many for ``_profiled``'s event tree):
+    the host wall, the card's busy time by kind (GEMMs and the rest) and
+    its share of the wall."""
+    import time
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kinds = {"gemm": 0.0, "other": 0.0}
+    n = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        low = e.name().lower()
+        kind = "gemm" if any(t in low for t in GEMM_NAMES) else "other"
+        kinds[kind] += (e.end_ns() - e.start_ns()) / 1e6
+        n += 1
+    return {"wall_ms_profiled": wall_ms, "device_ms": kinds,
+            "device_events": n,
+            "device_busy_share": sum(kinds.values()) / wall_ms}
+
+
+def phase_xlstm() -> dict:
+    """The xLSTM (phase 15): (a) xlstm-350m at full width and depth in
+    bf16, the schema's init: ``prefill_step`` at B 2, S 2048, its host wall
+    split by block kind, the card's span by block kind and one call's busy
+    share, and greedy decode through ``make_decode_step`` from
+    ``init_cache`` at B 8 (16 prompt tokens fed through decode steps, then
+    48 generated), profiled;
+    no kernel launches on either path; then the same tokens at full depth
+    in fp32, gates drawn away from their init, through decode steps
+    against the forward and ``prefill_step`` on the prompt
+    (``_xlstm_fp32_vs_forward``); (b) one group at full width in fp32
+    against the CPU, and decode against forward on the card
+    (``xlstm_checks``); (c) training (``xlstm_train``)."""
+    import time
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.serve.decode import prefill_step
+    from repro_torch.sharding.policy import leaves
+    log(f"=== phase 15: serve and train {XLSTM['arch']} at full width and "
+        f"depth ===")
+    cfg = get_config(XLSTM["arch"])
+    smi = _smi()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = serve.build_params(cfg, device=CARD)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in leaves(params))
+    none = {k: 0 for k in ops.LAUNCHES}
+    res = {"n_params": n_params, "init_s": init_s,
+           "param_bytes": sum(t.numel() * t.element_size()
+                              for t in leaves(params)),
+           "launches": dict(none)}
+    log(f"xlstm init ({smi}): {init_s:.2f} s for {n_params} params "
+        f"({res['param_bytes'] / 2**30:.2f} GiB)")
+    _require(n_params == M.count_params_analytic(cfg) == XLSTM_PARAMS,
+             n_params)
+
+    B, S = XLSTM["prefill"]
+    inputs = {"tokens": _tokens(1, B, S, cfg.vocab_size).to(CARD)}
+    walls = []
+    with torch.no_grad():
+        for _ in range(1 + XLSTM["prefill_calls"]):    # the first warms up
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            lg = prefill_step(params, cfg, inputs)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            _require(dict(ops.LAUNCHES) == none, dict(ops.LAUNCHES))
+        _require(tuple(lg.shape) == (B, cfg.vocab_size) and lg.dtype
+                 == torch.bfloat16 and bool(torch.isfinite(lg).all()),
+                 (tuple(lg.shape), lg.dtype))
+        with _xlstm_blocks(synced=True) as split:
+            t0 = time.perf_counter()
+            prefill_step(params, cfg, inputs)
+            torch.cuda.synchronize()
+            split_wall = (time.perf_counter() - t0) * 1e3
+        with _xlstm_blocks(synced=False) as spans:
+            prefill_step(params, cfg, inputs)
+        prof = _busy(lambda: prefill_step(params, cfg, inputs))
+    warm = float(np.median(walls[1:]))
+    res["prefill_step"] = {
+        "B": B, "S": S, "ms": walls, "ms_p50_warm": warm,
+        "wall_ms_by_block_synced": split, "wall_ms_synced": split_wall,
+        "slstm_share_of_wall": split["slstm"] / split_wall,
+        "device_span_ms_by_block": spans, "profile": prof}
+    log(f"xlstm prefill_step B={B} S={S} ({smi}): {walls} ms; host wall by "
+        f"block kind, each block synchronised: {split} of {split_wall:.1f} "
+        f"ms (sLSTM {split['slstm'] / split_wall:.3f}); the card's span by "
+        f"block kind {spans}; profile {prof} "
+        f"(at {_elapsed()} s)")
+    del lg, inputs
+
+    with torch.no_grad():
+        cache = M.init_cache(params, cfg, XLSTM["batch"], 0)
+    res["decode"] = _lockstep_decode(params, cfg, cache, XLSTM, 0)
+    del cache
+    P, new = XLSTM["prompt"], XLSTM["new"]
+    with torch.no_grad():                    # a bf16 reading, not a gate
+        seq = _decoded_sequence(cfg, res["decode"]["generated"]).to(CARD)
+        fwd = M.logits(params, cfg, {"tokens": seq})[0][
+            :, P - 1:P + new - 1].argmax(-1)
+        res["decode"]["bf16_forward_token_agreement"] = float(
+            (fwd == seq[:, P:]).float().mean())
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"xlstm decode ({smi}): {res['decode']}; peak "
+        f"{res['peak_bytes'] / 2**30:.2f} GiB (at {_elapsed()} s)")
+    del params
+    torch.cuda.empty_cache()
+    res["full_fp32"] = _xlstm_fp32_vs_forward(res["decode"]["generated"])
+    log(f"--- phase 15 (b) at {_elapsed()} s")
+    res["check"] = xlstm_checks()
+    torch.cuda.empty_cache()
+    res["train"] = xlstm_train()
+    return res
+
+
+def _decoded_sequence(cfg, generated: list):
+    """What ``_lockstep_decode`` fed its steps: the seeded prompts, then
+    the generated tokens (B, prompt + new)."""
+    import torch
+    gen = torch.tensor(generated, dtype=torch.int32)
+    prompts = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (gen.shape[0], XLSTM["prompt"])).astype(np.int32))
+    return torch.cat([prompts, gen], dim=1)
+
+
+def _xlstm_fp32_vs_forward(generated: list) -> dict:
+    """xlstm-350m at full width and depth in fp32 (gates drawn): the bf16
+    decode's sequence (the seeded prompts, then the generated tokens as the
+    decode fed them) through decode steps on the card against the forward
+    over it (``_decode_vs_forward``), and the forward at the prompt's last
+    position against ``prefill_step`` on the prompt, each within
+    TOL_DECODE_VS_FORWARD x max|logit|.  The same check in bf16 is only a
+    reading (the share of the bf16 decode's greedy tokens the bf16 forward
+    repeats): at this random init the bf16 function itself moves by 0.264
+    x max|logit| between two chunkings of the same prefix on the CPU,
+    where fp32 gives the same bits (``tools/xlstm_conditioning.py``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.serve.decode import prefill_step
+    P = XLSTM["prompt"]
+    cfg = get_config(XLSTM["arch"]).with_(dtype="float32")
+    seq = _decoded_sequence(cfg, generated).to(CARD)
+    params = serve.build_params(cfg, device=CARD)
+    gates = _xlstm_gates(params, 2)
+    what = f"xlstm full depth fp32 (B {seq.shape[0]}, T {seq.shape[1]})"
+    out = _decode_vs_forward(params, cfg, {"tokens": seq}, what)
+    with torch.no_grad():
+        full, _ = M.logits(params, cfg, {"tokens": seq})
+        pre = prefill_step(params, cfg, {"tokens": seq[:, :P]})
+    gap = float((pre - full[:, P - 1]).abs().max()
+                / full[:, P - 1].abs().max())
+    log(f"{what}: prefill_step on the {P}-token prompt vs the forward at "
+        f"its last position, max|d| / max|logit| {gap:.3e}")
+    _require(gap <= TOL_DECODE_VS_FORWARD
+             and torch.equal(pre.argmax(-1), full[:, P - 1].argmax(-1)), gap)
+    del params
+    torch.cuda.empty_cache()
+    return dict(out, prefill_step_vs_forward_rel_err=gap,
+                gates_max_abs=gates)
+
+
+def xlstm_checks() -> dict:
+    """xlstm-350m at full width with one group (7 mLSTM blocks and the
+    sLSTM block) in fp32, gates drawn, weights made once on the CPU and
+    copied to the card.  Card vs CPU: ``prefill_step`` logits at B 2, S 512
+    (two mLSTM chunks, so the inter-chunk recurrence runs) and 8 greedy
+    decode steps from ``init_cache``, identical tokens and logits within
+    TOL_LM x max|logit|.  Then, on the card, the 512 tokens through 512
+    decode steps against the full forward within TOL_DECODE_VS_FORWARD x
+    max|logit|.  No kernel launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.tree import tree_map
+    c = XLSTM_CHECK
+    cfg = get_config(XLSTM["arch"]).with_(n_layers=c["layers"],
+                                          dtype="float32")
+    cpu = serve.build_params(cfg, seed=1, device="cpu")
+    gates = _xlstm_gates(cpu, 1)
+    card = tree_map(lambda t: t.to(CARD), cpu)
+    B, S = c["prefill"]
+    toks = _tokens(2, B, S, cfg.vocab_size)
+    what = f"xlstm depth-{cfg.n_layers} fp32"
+    ops.reset_launches()
+    runs = {dev: _prefill_then_decode(p, cfg, {"tokens": toks.to(dev)},
+                                      c["steps"])
+            for dev, p in ((CARD, card), ("cpu", cpu))}
+    rel = _held_logits(runs[CARD], runs["cpu"], what)
+    del cpu
+    dvf = _decode_vs_forward(card, cfg, {"tokens": toks.to(CARD)}, what)
+    counts = dict(ops.LAUNCHES)
+    _require(all(v == 0 for v in counts.values()), counts)
+    return dict(dvf, layers=cfg.n_layers, gates_max_abs=gates,
+                logit_rel_err=rel, max_logit_rel_err=max(rel),
+                tokens_identical=True, launches=counts)
+
+
+def xlstm_train() -> dict:
+    """xlstm-350m at full width and depth in bf16 through
+    ``launch/train.main`` (B 8, S 128, 20 AdamW steps): every loss finite,
+    the eval loss falls, no kernel launches anywhere; ms a step, tokens/s
+    and peak memory.  Then one AdamW step of the smoke config with drawn
+    gates on the card against the CPU (``_held_training``), with
+    ``cfg.remat`` off and on."""
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import train as train_cli
+    from repro_torch.optim.adam import AdamW
+    from repro_torch.train.loop import make_train_step
+    t = XLSTM_TRAIN
+    log(f"--- phase 15 (c): train {XLSTM['arch']} at full width and depth")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "train.json")
+        rc = train_cli.main(["--arch", XLSTM["arch"], "--steps",
+                             str(t["steps"]), "--batch", str(t["batch"]),
+                             "--seq", str(t["seq"]), "--log-every", "5",
+                             "--device", CARD, "--out", out])
+        _require(rc == 0, rc)
+        with open(out) as fh:
+            rec = json.load(fh)
+    la = rec["launches"]
+    _require(rec["dtype"] == "bfloat16" and all(np.isfinite(rec["losses"]))
+             and rec["improved"], rec)
+    _require(all(v == 0 for part in la.values() for v in part.values()), la)
+    warm = rec["step_s"][1:]
+    res = {"full": {
+        "arch": XLSTM["arch"], "layers": rec["n_layers"],
+        "batch": t["batch"], "seq": t["seq"], "losses": rec["losses"],
+        "eval_before": rec["eval_before"], "eval_after": rec["eval_after"],
+        "step_ms": [x * 1e3 for x in rec["step_s"]],
+        "step_ms_p50": float(np.median(warm)) * 1e3,
+        "tokens_per_s": t["batch"] * t["seq"] / float(np.median(warm)),
+        "peak_bytes": rec["peak_bytes"]}}
+    f = res["full"]
+    log(f"train {XLSTM['arch']} (bf16; {_smi()}): step "
+        f"{f['step_ms_p50']:.1f} ms p50 after the first "
+        f"({f['step_ms'][0]:.1f}), {f['tokens_per_s']:.0f} tokens/s, peak "
+        f"{(f['peak_bytes'] or 0) / 2**30:.2f} GiB; eval "
+        f"{rec['eval_before']:.4f} -> {rec['eval_after']:.4f}")
+    torch.cuda.empty_cache()
+    for remat in (False, True):
+        cfg = get_smoke(XLSTM["arch"]).with_(remat=remat)
+        fns = make_train_step(cfg, AdamW())
+        params, state = fns.init(torch.Generator().manual_seed(0))
+        _xlstm_gates(params, 5)
+        batches = _lm_batches(cfg, 4, 64, 1)
+        card = _train_run(fns, params, state, batches, CARD)
+        _require(all(v == 0 for v in card[3].values()), card[3])
+        cpu = _train_run(fns, params, state, batches, "cpu")
+        res[f"smoke_remat_{remat}"] = _held_training(
+            f"{XLSTM['arch']} smoke (remat {remat})", cfg, card, cpu)
+    return res
+
+
+def phase_guards() -> dict:
+    """The runtime guards on the card (phase 16), against
+    ``ANALYSIS_budgets.json``: (a) a warmed VFL dispatch on phase 3's
+    bundle, ``predict_active`` and the mixed ``predict``, each under
+    ``no_host_sync``, ``compile_counter`` and ``cuda_sync_events``:
+    ``host_syncs_per_dispatch`` copies a dispatch, as many device->host
+    syncs, no compile; the engine's device tree in ``engine_dtypes``; (b)
+    one epoch of ``training.train`` (g1_active's autoencoder at Table-3
+    widths on the mimic3 scenario, batch 128, the lane-MLP kernels): one
+    copy; (c) one greedy decode step of xlstm-350m at full width, one group
+    in bf16, and (d) one warm engine step of internlm2-1.8b at full width,
+    depth 2 in bf16: one copy each (the tokens).  Blocking host->device
+    copies are reported apart."""
+    import torch
+    from repro_torch.analysis import guards
+    from repro_torch.configs import get_config
+    from repro_torch.core import autoencoder as ae
+    from repro_torch.core import training
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.serve.decode import make_decode_step
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.vfl import VFLServingEngine
+    log("=== phase 16: the runtime guards on the card ===")
+    budgets = guards.load_budgets()
+    per = budgets["serve_bucket_warm"]["host_syncs_per_dispatch"]
+    res = {}
+
+    def guarded(what: str, allowed: int, fn):
+        with guards.compile_counter(0, label=what) as comp, \
+                guards.no_host_sync(allowed, label=what,
+                                    device=CARD) as tally, \
+                guards.cuda_sync_events() as ev:
+            out = fn()
+        r = {"copies": tally.copies, "compiles": comp.count,
+             "sync_events": ev.as_dict()}
+        log(f"guards {what}: {r}")
+        _require(ev.d2h == tally.copies, (what, r))
+        res[what] = r
+        return out, r
+
+    sc, bundle = make_bundle(0)
+    eng = VFLServingEngine(bundle, device=CARD)
+    x, ids = sc.active.x[:200], sc.active.ids[:200]
+    eng.predict_active(x)
+    eng.predict(x, ids)                                    # warm both paths
+    for what, call in (("vfl predict_active", lambda: eng.predict_active(x)),
+                       ("vfl predict", lambda: eng.predict(x, ids))):
+        before = sum(eng.stats.dispatches.values())
+        _, r = guarded(what, 2 * per, call)
+        r["dispatches"] = sum(eng.stats.dispatches.values()) - before
+        _require(r["copies"] == per * r["dispatches"] >= 1, (what, r))
+    guards.audit_dtypes({"active": eng._p_active, "collab": eng._p_collab,
+                         "cache_z": eng.cache.z},
+                        budgets["engine_dtypes"], label="vfl engine")
+    del eng
+
+    xa = sc.active.x.astype(np.float32)
+    p = ae.init_autoencoder(torch.Generator().manual_seed(0),
+                            ae.table3_encoder("g1_active", xa.shape[1]),
+                            device=CARD)
+    fit, r = guarded("vfl train epoch", 1, lambda: training.train(
+        p, {"x": xa}, ae.make_recon_loss(True), batch_size=TRAIN_B,
+        max_epochs=1))
+    _require(fit.epochs_run == 1 and r["copies"] == 1, r)
+    guards.audit_dtypes(fit.params, budgets["engine_dtypes"],
+                        label="fitted g1_active")
+
+    cfg = get_config(XLSTM["arch"]).with_(n_layers=XLSTM_CHECK["layers"])
+    params = serve.build_params(cfg, device=CARD)
+    step = make_decode_step(cfg)
+    with torch.no_grad():
+        cache = M.init_cache(params, cfg, XLSTM["batch"], 0)
+        tok = _tokens(5, 1, XLSTM["batch"], cfg.vocab_size)[0].to(CARD)
+        for pos in range(2):                               # warm
+            tok, cache = step(params, tok, cache, pos)
+
+        def xlstm_step():
+            nxt, _ = step(params, tok, cache, 2)
+            return guards.to_host(nxt)
+        out, r = guarded("xlstm decode step", 1, xlstm_step)
+    _require(r["copies"] == 1 and out.shape == (XLSTM["batch"],), r)
+    del params, cache
+
+    lcfg = get_config(LM["arch"]).with_(n_layers=2)
+    engine = Engine(serve.build_params(lcfg, device=CARD), lcfg, batch=4,
+                    n_slots=64, prefill_len=16, device=CARD)
+    for q in serve.make_requests(4, lcfg.vocab_size, lo=8, hi=16,
+                                 max_new=16):
+        engine.submit(q)
+    for _ in range(3):                                     # prefills, warm
+        engine.step()
+    _, r = guarded("dense engine decode step", 1, engine.step)
+    _require(r["copies"] == 1, r)
+    return res
+
 def _smi() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -4029,6 +4510,10 @@ def main(argv=None) -> int:
     done("moe_audio")
     vlm = phase_vlm()
     done("vlm")
+    xlstm = phase_xlstm()
+    done("xlstm")
+    guard = phase_guards()
+    done("guards")
 
     csrc = "src/repro_torch/kernels/csrc/"
     srcs = {"lane_mlp_fwd": ("lane_mlp_fwd.cu", "lane_mlp.py:57"),
@@ -4152,6 +4637,30 @@ def main(argv=None) -> int:
            "train_step_ms_p50": vlm["train"]["full"]["step_ms_p50"],
            "train_tokens_per_s": vlm["train"]["full"]["tokens_per_s"],
            "train_peak_bytes": vlm["train"]["full"]["peak_bytes"]}))
+    xl = xlstm
+    log(f"xlstm ({XLSTM['arch']}, bf16; {smi}): " + json.dumps(
+        {"prefill_step_ms": xl["prefill_step"]["ms"],
+         "prefill_slstm_share_of_wall": xl["prefill_step"][
+             "slstm_share_of_wall"],
+         "prefill_busy_share": xl["prefill_step"]["profile"][
+             "device_busy_share"],
+         "prefill_device_span_ms_by_block": xl["prefill_step"][
+             "device_span_ms_by_block"]}
+        | {k: xl["decode"][k] for k in (
+            "step_ms_p50", "step_ms_p99", "generated_tokens_per_s")}
+        | {"decode_busy_share": xl["decode"]["profile"]["device_busy_share"],
+           "full_fp32_decode_vs_forward": xl["full_fp32"][
+               "decode_vs_forward_rel_err"],
+           "peak_bytes": xl["peak_bytes"], "init_s": xl["init_s"],
+           "card_vs_cpu": xl["check"]["max_logit_rel_err"],
+           "decode_vs_forward": xl["check"]["decode_vs_forward_rel_err"],
+           "train_step_ms_p50": xl["train"]["full"]["step_ms_p50"],
+           "train_tokens_per_s": xl["train"]["full"]["tokens_per_s"],
+           "train_peak_bytes": xl["train"]["full"]["peak_bytes"]}))
+    log(f"guards (to_host copies and device->host / blocking host->device "
+        f"syncs a block; {smi}): " + json.dumps(
+            {k: [r["copies"], r["sync_events"]["d2h"],
+                 r["sync_events"]["h2d"]] for k, r in guard.items()}))
     log("details: " + json.dumps({"timing": timing, "serve": serve,
                                   "train": train, "train_time": train_time,
                                   "turns": turns, "g3_limit": limit,
@@ -4160,6 +4669,7 @@ def main(argv=None) -> int:
                                   "experiments": experiments,
                                   "runtime": runtime, "lm_train": lm_train,
                                   "moe_audio": moe_audio, "vlm": vlm,
+                                  "xlstm": xlstm, "guards": guard,
                                   "elapsed_s": elapsed,
                                   "wrappers": wrappers,
                                   "torch": torch.__version__,

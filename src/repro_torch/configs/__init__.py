@@ -1,9 +1,8 @@
-"""Model configs: ``get_config(arch_id)`` / ``get_smoke(arch_id)`` for the
-families the port has (the dense decoders, the MoE decoders, the
-encoder-only audio transformer, the zamba2 hybrid and the VLM), and the
-tabular APC-VFL protocol's hyperparameters (``apcvfl_paper``).  The xLSTM
-config raises ``NotImplementedError`` until its slice (ROADMAP.md, Queue 1
-item 9)."""
+"""Model configs: ``get_config(arch_id)`` / ``get_smoke(arch_id)`` for
+every arch of the reference's registry (the dense decoders, the MoE
+decoders, the encoder-only audio transformer, the zamba2 hybrid, the VLM,
+the xLSTM and the paper's scaled student encoder), and the tabular APC-VFL
+protocol's hyperparameters (``apcvfl_paper.TABULAR``)."""
 from __future__ import annotations
 
 import importlib
@@ -25,20 +24,11 @@ ARCH_IDS = [
     "kimi-k2-1t-a32b",
     "apcvfl-paper",
 ]
-# the configs ported so far: the dense decoders, the zamba2 hybrid, the MoE
-# decoders, the audio encoder and the VLM; the xLSTM comes later
-PORTED = ("internlm2-1.8b", "internlm2-20b", "yi-6b", "nemotron-4-15b",
-          "zamba2-2.7b", "qwen3-moe-30b-a3b", "kimi-k2-1t-a32b",
-          "hubert-xlarge", "llama-3.2-vision-11b")
 
 
 def _mod(arch: str):
     if arch not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
-    if arch not in PORTED:
-        raise NotImplementedError(
-            f"{arch} is not ported yet (ROADMAP.md, Queue 1 item 9); the "
-            f"port has {', '.join(PORTED)}")
     return importlib.import_module(
         "repro_torch.configs." + arch.replace("-", "_").replace(".", "_"))
 

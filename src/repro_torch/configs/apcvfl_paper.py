@@ -1,8 +1,11 @@
-"""The paper's tabular-protocol hyperparameters (Appendix B): a copy of
-``TabularHparams`` / ``TABULAR`` in ``repro.configs.apcvfl_paper``.  Every
+"""The paper's tabular-protocol hyperparameters (Appendix B) and its scaled
+student-encoder backbone: a copy of ``repro.configs.apcvfl_paper``.  Every
 ``run_*`` entry point in ``repro_torch.core`` defaults its kwargs from
-``TABULAR``."""
+``TABULAR``; ``config()`` names the dense encoder that plays g3 under the
+``apcvfl_distill`` objective at scale."""
 from dataclasses import dataclass
+
+from repro_torch.configs.base import ModelConfig
 
 
 @dataclass(frozen=True)
@@ -18,3 +21,18 @@ class TabularHparams:
 
 
 TABULAR = TabularHparams()
+
+
+def config() -> ModelConfig:
+    # the student-encoder backbone of the apcvfl_distill objective at scale:
+    # a small dense GQA encoder whose pooled hidden state is z = g3(x)
+    return ModelConfig(
+        name="apcvfl-paper", family="dense", n_layers=12, d_model=1024,
+        n_heads=16, n_kv_heads=8, d_ff=4096, vocab_size=32768,
+        head_dim=64, ffn_type="swiglu")
+
+
+def smoke() -> ModelConfig:
+    return config().with_(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2,
+                          head_dim=64, d_ff=512, vocab_size=512,
+                          dtype="float32")

@@ -52,6 +52,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.analysis.guards import to_host
 from repro_torch.core import padding
 from repro_torch.optim.adam import paper_adam
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -190,8 +191,8 @@ def _fit(params, tr, val, loss_fn, *, lanes: Optional[int], nb, bs: int,
             improved_t = torch.as_tensor(live, device=dev) & (
                 vl < best_v - 1e-6)
             # the one host sync of the epoch: its losses and the decision
-            host = torch.stack([tl, vl, improved_t.to(tl.dtype)]).cpu()
-            improved = host[2].numpy() > 0
+            host = to_host(torch.stack([tl, vl, improved_t.to(tl.dtype)]))
+            improved = host[2] > 0
             for j in np.flatnonzero(live):
                 tl_hist[j].append(float(host[0, j]))
                 vl_hist[j].append(float(host[1, j]))

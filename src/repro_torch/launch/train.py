@@ -11,10 +11,14 @@ Run:  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu
           --arch qwen3-moe-30b-a3b --layers 2 --steps 20   # full width
       PYTHONPATH=src python -m repro_torch.launch.train \
           --arch llama-3.2-vision-11b --smoke --device cpu
+      PYTHONPATH=src python -m repro_torch.launch.train \
+          --arch xlstm-350m --steps 20   # full width and depth, the card
 
 ``--layers N`` cuts the config's depth (a model of 30.5 B params does not
 train with AdamW on one 80 GB card); for the VLM it must be a multiple of
-``cross_attn_period`` (whole groups of self blocks and their cross block).
+``cross_attn_period`` (whole groups of self blocks and their cross block),
+for the xLSTM of ``slstm_period`` (whole groups of mLSTM blocks and their
+sLSTM block).
 ``--arch hubert-xlarge`` is refused with the reference's message: the
 audio encoder trains on the frame objective (``train.loop.task_loss``), not
 the token stream.  The VLM's batches carry zero ``image_embeds`` (B,
@@ -81,12 +85,15 @@ def main(argv=None) -> int:
         raise SystemExit("use launch/train for LM families; hubert trains "
                          "via the masked-frame objective in tests/examples")
     if args.layers:
-        if cfg.family == "vlm" and args.layers % cfg.cross_attn_period:
-            g = cfg.cross_attn_period
+        g = {"vlm": cfg.cross_attn_period,
+             "ssm": cfg.slstm_period}.get(cfg.family, 1)
+        if args.layers % g:
+            closer = {"vlm": "self blocks and one cross block",
+                      "ssm": "mLSTM blocks and one sLSTM block"}[cfg.family]
             raise SystemExit(
                 f"--layers {args.layers}: {cfg.name} stacks its layers in "
-                f"groups of {g} ({g - 1} self blocks and one cross block), "
-                f"so --layers must be a multiple of {g}")
+                f"groups of {g} ({g - 1} {closer}), so --layers must be a "
+                f"multiple of {g}")
         cfg = cfg.with_(n_layers=args.layers)
     fns = make_train_step(cfg, AdamW(lr=args.lr))
     params, opt = fns.init(torch.Generator(device=device).manual_seed(0))

@@ -109,8 +109,10 @@ def route(router: torch.Tensor, cfg: ModelConfig,
     order = torch.argsort(eid, stable=True)
     eid_s = eid[order]
     # starts[e]: the exclusive cumsum of the per-expert counts
-    starts = torch.searchsorted(eid_s, torch.arange(E, device=eid.device))
-    rank_s = torch.arange(N * k, device=eid.device) - starts[eid_s]
+    starts = torch.searchsorted(eid_s, torch.arange(E, dtype=torch.int64,
+                                                 device=eid.device))
+    rank_s = torch.arange(N * k, dtype=torch.int64,
+                          device=eid.device) - starts[eid_s]
     dest = torch.where(rank_s < C, eid_s * C + rank_s, E * C)
     slot = torch.empty_like(dest)
     slot[order] = dest                      # a permutation: no collisions
@@ -195,7 +197,7 @@ def moe(p: dict, cfg: ModelConfig, x: torch.Tensor):
     slot = r.slot.reshape(N * k)
     dev = x.device
     entry = torch.full((E * C + 1,), N * k, dtype=torch.int64, device=dev)
-    entry[slot] = torch.arange(N * k, device=dev)
+    entry[slot] = torch.arange(N * k, dtype=torch.int64, device=dev)
     entry = entry[:-1]
     tok_of_slot = torch.where(entry < N * k,
                               torch.div(entry, k, rounding_mode="floor"), N)

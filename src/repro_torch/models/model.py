@@ -1,7 +1,7 @@
 """Model dispatch: one entry point per family (a copy of
-``repro.models.model``).  The port has the dense and MoE decoders, the
-encoder-only audio stack, the zamba2 hybrid and the VLM; the xLSTM raises
-``NotImplementedError`` until its slice (ROADMAP.md, Queue 1 item 9).
+``repro.models.model``): the dense and MoE decoders, the encoder-only audio
+stack, the zamba2 hybrid, the VLM and the xLSTM (``ssm``).  A family
+outside these raises ``ValueError``.
 
 Public surface:
   schema(cfg)                      -> ParamDef tree
@@ -19,12 +19,13 @@ from repro_torch.models import hybrid, transformer
 from repro_torch.sharding.policy import DTYPES, leaves, param_count
 
 
+FAMILIES = ("dense", "moe", "audio", "hybrid", "vlm", "ssm")
+
+
 def _check(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "audio", "hybrid", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
-            f"has the dense and MoE decoders, the audio encoder, the "
-            f"zamba2 hybrid and the VLM (ROADMAP.md, Queue 1 item 9)")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown model family {cfg.family!r}; "
+                         f"known: {FAMILIES}")
 
 
 def schema(cfg: ModelConfig):
@@ -33,6 +34,8 @@ def schema(cfg: ModelConfig):
         return transformer.schema_vlm(cfg)
     if cfg.family == "hybrid":
         return hybrid.schema_zamba(cfg)
+    if cfg.family == "ssm":
+        return hybrid.schema_xlstm(cfg)
     return transformer.schema_decoder(cfg)   # dense | moe | audio
 
 
@@ -42,6 +45,8 @@ def hidden(params, cfg: ModelConfig, inputs: dict):
         return transformer.vlm_hidden(params, cfg, inputs)
     if cfg.family == "hybrid":
         return hybrid.zamba_hidden(params, cfg, inputs)
+    if cfg.family == "ssm":
+        return hybrid.xlstm_hidden(params, cfg, inputs)
     return transformer.decoder_hidden(params, cfg, inputs)
 
 
@@ -51,6 +56,8 @@ def logits(params, cfg: ModelConfig, inputs: dict):
         return transformer.vlm_logits(params, cfg, inputs)
     if cfg.family == "hybrid":
         return hybrid.zamba_logits(params, cfg, inputs)
+    if cfg.family == "ssm":
+        return hybrid.xlstm_logits(params, cfg, inputs)
     return transformer.decoder_logits(params, cfg, inputs)
 
 
@@ -60,10 +67,10 @@ def supports_decode(cfg: ModelConfig) -> bool:
 
 def init_cache(params, cfg: ModelConfig, batch: int, n_slots: int,
                image_embeds=None):
-    """The decode cache in ``cfg.dtype``, on the device of ``params``; the
-    audio encoder has none (``supports_decode``).  The VLM's needs its
-    ``image_embeds`` (B, T, d), whose K/V it projects once; ``batch`` is
-    then theirs."""
+    """The decode cache in ``cfg.dtype`` (the xLSTM's recurrent states in
+    fp32, with no slots), on the device of ``params``; the audio encoder
+    has none (``supports_decode``).  The VLM's needs its ``image_embeds``
+    (B, T, d), whose K/V it projects once; ``batch`` is then theirs."""
     _check(cfg)
     transformer.require_decode(cfg)
     device = leaves(params)[0].device
@@ -77,6 +84,8 @@ def init_cache(params, cfg: ModelConfig, batch: int, n_slots: int,
     if cfg.family == "hybrid":
         return hybrid.zamba_init_cache(cfg, batch, n_slots, dtype,
                                        device=device)
+    if cfg.family == "ssm":   # recurrent states, fp32: no slots
+        return hybrid.xlstm_init_cache(cfg, batch, device=device)
     return transformer.decoder_init_cache(cfg, batch, n_slots, dtype,
                                           device=device)
 
@@ -87,6 +96,8 @@ def decode(params, cfg: ModelConfig, token, cache, pos, window: int = 0):
         return transformer.vlm_decode(params, cfg, token, cache, pos, window)
     if cfg.family == "hybrid":
         return hybrid.zamba_decode(params, cfg, token, cache, pos, window)
+    if cfg.family == "ssm":
+        return hybrid.xlstm_decode(params, cfg, token, cache, pos, window)
     return transformer.decoder_decode(params, cfg, token, cache, pos, window)
 
 

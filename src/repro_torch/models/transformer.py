@@ -39,21 +39,10 @@ from repro_torch.models.common import (causal_mask, embed, norm_apply, rope,
                                        schema_embed, schema_norm, unembed)
 from repro_torch.sharding.policy import DTYPES, ParamDef, stack
 
-# the families whose slices are still to come (ROADMAP.md, Queue 1 item 9)
-_LATER = {"ssm": "the xLSTM slice (models/xlstm.py)"}
-
-
-def _ported(cfg: ModelConfig) -> None:
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; it comes "
-            f"with {_LATER[cfg.family]} (ROADMAP.md, Queue 1 item 9)")
-
 
 def require_decode(cfg: ModelConfig) -> None:
     """Refuse a family without a decode: the audio encoder (the
     reference's ``supports_decode``)."""
-    _ported(cfg)
     if cfg.family == "audio":
         raise ValueError(f"{cfg.name}: family 'audio' is encoder-only and "
                          f"has no decode (supports_decode is False)")
@@ -121,7 +110,6 @@ def block_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def schema_decoder(cfg: ModelConfig) -> dict:
-    _ported(cfg)
     s = {
         "embed": schema_embed(cfg.vocab_size, cfg.d_model),
         "blocks": stack(schema_block(cfg, moe=_is_moe(cfg)), cfg.n_layers),
@@ -139,7 +127,6 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 def decoder_hidden(params: dict, cfg: ModelConfig, inputs: dict):
     """Token (or pre-embedded frame) inputs -> (final hidden states
     (B, S, d), the MoE aux summed over the layers: 0.0 without experts)."""
-    _ported(cfg)
     if cfg.family == "audio":
         x = inputs["frames"].to(DTYPES[cfg.dtype])
         B, S = x.shape[0], x.shape[1]

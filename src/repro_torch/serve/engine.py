@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.analysis.guards import to_host
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
 from repro_torch.models.transformer import decoder_prefill_with_cache
@@ -112,7 +113,7 @@ class Engine:
                       out=self.cache.slot_pos)
         self.slots[i] = req
         self.pos[i] = P
-        self.cur[i] = int(torch.argmax(logits[0]))
+        self.cur[i] = int(to_host(torch.argmax(logits[0])))
         req.generated.append(int(self.cur[i]))
         self.stats.tokens_out += 1      # the prefill emits the first token
         self.stats.prefills += 1
@@ -139,7 +140,7 @@ class Engine:
         pos = int(self.pos.max())
         tok = torch.as_tensor(self.cur, device=self.device)
         nxt, self.cache = self._decode(self.params, tok, self.cache, pos)
-        nxt_np = nxt.cpu().numpy()
+        nxt_np = to_host(nxt)
         self.step_ms.append((time.perf_counter() - t0) * 1e3)
         self.stats.decode_steps += 1
         for i in active:

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch import convert, resolve_device
+from repro_torch.analysis.guards import to_host
 from repro_torch.checkpoint import ckpt
 from repro_torch.core import autoencoder as ae
 from repro_torch.core import classifier as clf
@@ -437,7 +438,7 @@ class VFLServingEngine:
             else:
                 logits = self._active_fn(self._p_active, xt)
             # the ONE device->host sync per dispatch
-            outs.append(logits.cpu().numpy()[:rows])
+            outs.append(to_host(logits)[:rows])
         return np.concatenate(outs) if len(outs) > 1 else outs[0]
 
     def predict_active(self, x) -> np.ndarray:

@@ -1,6 +1,6 @@
-"""Training step factory for the LM families the port has (the dense and
-MoE decoders, the zamba2 hybrid, the VLM (its batches carry
-``image_embeds``) and the encoder-only audio stack): LM
+"""Training step factory for the LM families (the dense and MoE decoders,
+the zamba2 hybrid, the VLM (its batches carry ``image_embeds``), the xLSTM
+and the encoder-only audio stack): LM
 cross-entropy (all decoder families), frame cross-entropy (audio), and
 the paper's ``apcvfl_distill`` composite objective (Eq. 5) scaled to a
 sequence backbone.  The port of ``repro.train.loop``.  Both objectives
@@ -86,11 +86,11 @@ def make_train_step(cfg: ModelConfig, opt: AdamW = AdamW(),
     the optimizer state; ``step(params, opt_state, batch)`` returns
     ``(params, opt_state, metrics)`` with ``loss``, ``grad_norm`` and the
     objective's parts.  ``lr_schedule(step)`` sets the lr of each step
-    from the 1-based step count.  Families the port does not have raise
+    from the 1-based step count.  An unknown family raises
     (``models/model.py``)."""
     loss_fn = {"lm": task_loss,
                "apcvfl_distill": apcvfl_distill_loss}[objective]
-    M.schema(cfg)                     # refuse a family the port lacks now
+    M.schema(cfg)                     # refuse an unknown family now
 
     def init(gen: torch.Generator):
         params = init_params(M.schema(cfg), gen, DTYPES[cfg.dtype],

@@ -71,7 +71,11 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
                 "robustness.faults", "serve.runtime", "optim.schedule",
                 "data.tokens", "train.loop", "launch.train",
                 "configs.qwen3_moe_30b_a3b", "configs.kimi_k2_1t_a32b",
-                "configs.hubert_xlarge"):
+                "configs.hubert_xlarge", "configs.llama_3_2_vision_11b",
+                "configs.xlstm_350m", "models.xlstm", "analysis",
+                "analysis.guards", "analysis.lint", "analysis.rules",
+                "analysis.rules.r001_host_calls",
+                "analysis.rules.r007_dtype_hygiene", "launch.lint"):
         assert f"repro_torch.{mod}" in r.stdout.split(), mod
 
 

@@ -27,7 +27,7 @@ from repro.serve import decode as jdecode
 from repro.serve import engine as jengine
 from repro.sharding.policy import init_params as jinit
 from repro_torch import convert
-from repro_torch.configs import ARCH_IDS, PORTED, get_config, get_smoke
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke
 from repro_torch.kernels import ops
 from repro_torch.launch import serve as tserve
 from repro_torch.models import common, ffn
@@ -292,7 +292,7 @@ def test_serve_cli_builds_params_in_the_config_dtype():
     assert bool(torch.isfinite(logits.float()).all())
 
 
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_full_config_param_counts_match_without_allocation(arch):
     cfg = get_config(arch)
     jc = jget_config(arch)
@@ -302,17 +302,18 @@ def test_full_config_param_counts_match_without_allocation(arch):
 
 
 def test_registry_raises_for_unported_families():
+    """Every arch of the reference's registry is ported since; an unknown
+    arch and an unknown family still raise."""
     families = {"zamba2-2.7b": "hybrid", "qwen3-moe-30b-a3b": "moe",
                 "kimi-k2-1t-a32b": "moe", "hubert-xlarge": "audio",
-                "llama-3.2-vision-11b": "vlm"}
+                "llama-3.2-vision-11b": "vlm", "xlstm-350m": "ssm"}
     for arch in ARCH_IDS:
-        if arch in PORTED:
-            assert get_config(arch).family == families.get(arch, "dense")
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.schema(get_smoke("yi-6b").with_(family="ssm"))
+        assert get_config(arch).family == families.get(arch, "dense")
+        assert get_smoke(arch).family == families.get(arch, "dense")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("xlstm-1b")
+    with pytest.raises(ValueError, match="unknown model family"):
+        M.schema(get_smoke("yi-6b").with_(family="rwkv"))
 
 
 def test_init_recipes():

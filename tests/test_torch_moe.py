@@ -491,21 +491,26 @@ def test_full_qwen3_builds_with_no_fp32_tensor_past_a_slice(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# what the registry and the models still refuse
+# the registry and the models: every family accepted, unknown ones refused
 # ---------------------------------------------------------------------------
 
-# the VLM is ported since; the xLSTM is the one family still refused
+# the names are kept from when the VLM and the xLSTM were refused; both are
+# ported since, and each test now checks that the family is accepted and
+# that an unknown arch or family still raises
 @pytest.mark.parametrize("arch", ["xlstm-350m"])
 def test_registry_still_refuses_the_vlm_and_xlstm(arch):
     for get in (get_config, get_smoke):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get(arch)
+        assert get(arch).family == "ssm"
+        with pytest.raises(KeyError, match="unknown arch"):
+            get(arch.replace("350m", "7b"))
 
 
 @pytest.mark.parametrize("family", ["ssm"])
 def test_models_refuse_the_vlm_and_xlstm_families(family):
-    cfg = get_smoke("qwen3-moe-30b-a3b").with_(family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.schema(cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        ttr.schema_decoder(cfg)
+    cfg = get_smoke("xlstm-350m")
+    assert cfg.family == family
+    assert set(M.schema(cfg)["groups"]) == {"mlstms", "slstm"}
+    assert M.count_params_analytic(cfg) == JM.count_params_analytic(
+        jget_smoke("xlstm-350m"))
+    with pytest.raises(ValueError, match="unknown model family"):
+        M.schema(get_smoke("qwen3-moe-30b-a3b").with_(family="rwkv"))

@@ -226,8 +226,11 @@ def test_cross_entropy_matches_reference():
 
 
 def test_train_step_refuses_a_family_the_port_lacks():
-    cfg = get_smoke("internlm2-1.8b").with_(family="ssm")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    """The port has every family of the reference since the xLSTM; the
+    step accepts it and still refuses an unknown family."""
+    assert tloop.make_train_step(get_smoke("xlstm-350m")) is not None
+    cfg = get_smoke("internlm2-1.8b").with_(family="rwkv")
+    with pytest.raises(ValueError, match="unknown model family"):
         tloop.make_train_step(cfg)
 
 
