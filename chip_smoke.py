@@ -43,6 +43,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    128, one text row against T 1600, and a ragged S 100 against T 37 at hd
    64, non-causal) and causal at the VLM's GQA 4; decode also at GQA 4 and
    over the VLM's image cache (W 1600, every slot valid).
+   The lane-MLP pair also at phase 17's shapes: 16 lanes of 8,192 rows,
+   16 -> 32 -> 64 and 64 -> 32 -> 16, the forward with and without
+   ``save`` within 1e-4, the backward within 1e-5 relative.
    Then the SSD intra-chunk wrapper within 2e-4 (the reference's bound) at
    zamba2's width (B 2, S 512, H 80, N = P = 64, Lc 256), a ragged grouped
    chunk (S 100, H 6, G 2) and per-step log-decays down to -16, and its
@@ -63,7 +66,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (every fold step one probe launch) within 0.03 of the plain probe.
 5. time   — kernel, plain-version and library times (CUDA events over
    CUDA-graph replays) and the work bound at the serving bucket (256) and
-   the training batch (128), the lane-MLP forward and the int8 matmul also
+   the training batch (128), the lane-MLP pair also at phase 17's 16
+   lanes of 8,192 rows, the lane-MLP forward and the int8 matmul also
    at bucket 16 (the serving stream's smallest), the forward also with
    training's saved pre-activations, Eq. 5 in the g3 step's forms and the
    rows form and as a whole step's loss, and an empty kernel (the launch
@@ -248,6 +252,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
    one ``to_host`` copy a
    dispatch, an epoch and a decode step, as many device->host syncs, no
    compile; blocking host->device copies reported apart.
+17. scale — lane meshes and the million-row workload (``data/scale.py``,
+   ``train_lanes(mesh=, shard_rows=)``, ``launch/mesh.py``): (a) the
+   reference's workload at its full size (``benchmarks/trainbench.py``'s
+   ``run_scale`` defaults): 10^6 rows x 8 parties x 2 seeds = 16 lanes of
+   16 features (1.024 GB), generated on ``cuda:0`` block by block (2^17
+   rows), widths 16 -> 32 -> 64, trained through ``train_lanes(mesh=
+   make_lane_mesh(lane=1))`` (a world of one) on the kernel loss at batch
+   8,192, 2 epochs with patience 2, cold, warm and once under the
+   profiler: generation seconds, cold and warm fit seconds, steps/s,
+   rows/s, the card's busy share, the lane-MLP kernels' time a launch,
+   peak memory and the final mean train loss; the data on ``cuda:0``, a
+   seed's parties correlated through their shared latents (another
+   seed's not), the loss falling from epoch 1 to 2, both lane-MLP
+   kernels launched; (b) a cut (2 parties x 1 seed x 65,540 rows,
+   generated on the CPU, moved to the card; one epoch): the card's fit
+   held to the CPU's at phase 4's bounds (epochs and steps equal, every
+   epoch's loss within TOL_LOSS); (c) two ranks spawned on the one card
+   over gloo (``launch.mesh.run_ranks``): the cut at ``lane=2`` and at
+   ``lane=1, data=2`` with ``shard_rows`` (each rank keeping 32,770 of a
+   lane's rows), each rank's results held to (b)'s one-process card run
+   at phase 4's bounds, whether they are the same bits reported.  A
+   ``scale (...)`` line gives the numbers beside the card's name and
+   power limit.
 
 Launch counters are zeroed just before each run of a path (serve fp32,
 serve int8, train, probe, lm, each zamba prefill and the zamba decode,
@@ -255,7 +282,8 @@ each card run of phase 9, phase 10's spec files, each runtime stream and
 the fault run, each eval pass and the steps of phase 12, phase 13's
 serve, ``prefill_step``, hubert's calls, eval passes and steps, phase
 14's prefills, its decode, eval passes and steps, phase 15's prefills,
-decode and checks, which must launch none) and read
+decode and checks, which must launch none, phase 17's first full-size
+fit) and read
 just after; every kernel must have launched on its path.  The last
 lines are a ``details:`` line (every measurement as JSON), the ``kernels``
 JSON, the card's name and power limit, and ``{"ok": true, "device":
@@ -541,6 +569,19 @@ XLSTM_PARAMS = 518_686_888
 XLSTM_CHECK = dict(layers=8, prefill=(2, 512), steps=8)
 XLSTM_TRAIN = dict(steps=20, batch=8, seq=128)
 
+# phase 17: the reference's million-row workload at its full size
+# (benchmarks/trainbench.py:27-29, run_scale's defaults)
+SCALE = dict(rows=1_000_000, parties=8, seeds=(0, 1), features=16,
+             widths=[16, 32, 64], block_rows=1 << 17, batch=8192, epochs=2,
+             patience=2)
+# the lane-MLP pair at its shapes: 16 lanes, the batch, encoder and decoder
+SCALE_LANE_MLPS = {"scale.enc": (16, 32, 64), "scale.dec": (64, 32, 16)}
+# (b), (c): a cut of it, generated on the CPU.  65,540 rows rather than
+# 2^16: the data axis of 2 must divide the validation rows (6,554; 2^16
+# gives 6,553) and the train rows for the rows to split at all
+SCALE_CUT = dict(rows=65_540, parties=2, seeds=(0,), epochs=1)
+
+
 def _elapsed() -> str:
     """Seconds since this module was imported."""
     return f"{time.perf_counter() - _T0:.1f}"
@@ -680,6 +721,7 @@ def phase_check() -> dict:
             _require(e <= TOL_INT8, (name, B, e))
             err["int8_matmul"] = max(err["int8_matmul"], e)
     check_training_kernels(gen, err)
+    check_scale_lane_mlp(gen, err)
     check_attention_kernels(gen, err)
     check_ssd_kernel(gen, err)
     return err, check_wrappers(gen)
@@ -868,6 +910,56 @@ def check_training_kernels(gen, err: dict) -> None:
         log(f"probe n={n} C={C} lanes={k}: max|err| {e:.3e}")
         _require(e <= TOL_PROBE, (n, e))
         err["probe"] = max(err["probe"], e)
+
+
+def check_scale_lane_mlp(gen, err: dict) -> None:
+    """The lane-MLP pair at phase 17's shapes (part of phase 2): 16 lanes,
+    the scale encoder 16 -> 32 -> 64 and its decoder 64 -> 32 -> 16.  The
+    forward at the batch's 8,192 rows with and without ``save``, and
+    without it at the whole validation set's rows (each epoch's
+    validation pass), within TOL_MLP of ``ref.mlp2_fwd_ref``; the backward
+    (dW summing 8,192 rows) within TOL_GRAD relative."""
+    import inspect
+    import torch
+    from repro_torch.core import training
+    from repro_torch.kernels import lane_mlp, ref
+    L, B = len(SCALE["seeds"]) * SCALE["parties"], SCALE["batch"]
+    val_frac = inspect.signature(training.train_lanes).parameters[
+        "val_frac"].default
+    n_val = max(int(SCALE["rows"] * val_frac), 1)
+    for name, (din, h, dz) in SCALE_LANE_MLPS.items():
+        stacks = {}
+        for rows, saves in ((B, (False, True)), (n_val, (False,))):
+            stacks[rows] = stack = [torch.stack(t) for t in zip(*[
+                _mlp_inputs(gen, rows, din, h, dz) for _ in range(L)])]
+            out_ref, a1_ref, a2_ref = ref.mlp2_fwd_ref(*stack)
+            for save in saves:
+                got = lane_mlp.launch(*stack, save=save)
+                pairs = [("out", got, out_ref)] if not save else [
+                    ("out", got[0], out_ref), ("a1", got[1], a1_ref),
+                    ("a2", got[2], a2_ref)]
+                torch.cuda.synchronize()
+                for what, a, b in pairs:
+                    e = _maxerr(a, b)
+                    log(f"lane_mlp_fwd {name} L={L} B={rows} save={save} "
+                        f"{what}: max|err| {e:.3e}")
+                    _require(e <= TOL_MLP, (name, rows, save, what, e))
+                    err["lane_mlp_fwd"] = max(err["lane_mlp_fwd"], e)
+            del out_ref, a1_ref, a2_ref
+        xs, w0s, b0s, w1s, b1s = stack = stacks.pop(B)
+        del stacks
+        _, a1, a2 = lane_mlp.launch(*stack, save=True)
+        g = _rand(gen, (L, B, dz))
+        got = lane_mlp.launch_bwd(g, xs, a1, a2, w0s, w1s, final_act=False)
+        want = ref.mlp2_bwd_ref(g, xs, a1, a2, w0s, w1s, False)
+        torch.cuda.synchronize()
+        e = max(_relerr(a, b) for a, b in zip(got, want))
+        e_abs = max(_maxerr(a, b) for a, b in zip(got, want))
+        log(f"lane_mlp_bwd {name} L={L} B={B}: rel err {e:.3e}, "
+            f"max|err| {e_abs:.3e}")
+        _require(e <= TOL_GRAD, (name, B, e))
+        err["lane_mlp_bwd_rel"] = max(err["lane_mlp_bwd_rel"], e)
+        err["lane_mlp_bwd"] = max(err["lane_mlp_bwd"], e_abs)
 
 
 def _attn_dtypes():
@@ -1429,6 +1521,7 @@ def phase_time() -> dict:
             "int8_matmul": _int8_set(gen, B),
             "int8_matmul_bucket16": _int8_set(gen, 16)}
     sets.update(_training_kernel_sets(gen))
+    sets.update(_scale_kernel_sets(gen))
     sets.update(_launch_floor_set())
     sets.update(_attention_kernel_sets(gen))
     sets.update(_ssd_kernel_sets(gen))
@@ -1532,6 +1625,53 @@ def _library_probe(w, b, x, y, rwn):
     loss = -(lp.gather(-1, yl)[..., 0] * rwn).sum(-1)
     g = (lp.exp() - F.one_hot(y.long(), w.shape[-1])) * rwn[..., None]
     return loss, torch.matmul(x.T, g), g.sum(1)
+
+
+def _library_mlp_bwd_lanes(g, x, a1, a2, w0, w1):
+    """``_library_mlp_bwd`` over a lane stack: ``bmm`` in place of ``mm``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ref import SELU_ALPHA, SELU_SCALE
+    dw1 = torch.bmm(F.selu(a1).transpose(1, 2), g)
+    g1 = torch.ops.aten.elu_backward(torch.bmm(g, w1.transpose(1, 2)),
+                                     SELU_ALPHA, SELU_SCALE, 1.0, False, a1)
+    return (torch.bmm(g1, w0.transpose(1, 2)),
+            torch.bmm(x.transpose(1, 2), g1), g1.sum(1), dw1, g.sum(1))
+
+
+def _scale_kernel_sets(gen) -> dict:
+    """Timing sets of the lane-MLP pair at phase 17's shapes: 16 lanes of
+    8,192 rows through the scale encoder and its decoder, the forward as
+    training launches it (``save``), the backward; the library calls are
+    ``baddbmm``, ``F.selu``, ``baddbmm`` and the ``bmm`` backward."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import lane_mlp, ref
+    L, B = len(SCALE["seeds"]) * SCALE["parties"], SCALE["batch"]
+    fwd, bwd = [], []
+    for name, (din, h, dz) in SCALE_LANE_MLPS.items():
+        s = [torch.stack(t) for t in zip(*[_mlp_inputs(gen, B, din, h, dz)
+                                           for _ in range(L)])]
+        fwd.append(dict(
+            shape=f"{name} {din}->{h}->{dz} L={L} B={B} save", iters=10,
+            flops=2.0 * L * B * (din * h + h * dz),
+            bytes=4.0 * L * (B * din + din * h + h + h * dz + dz + B * dz
+                             + B * (h + dz)),
+            kernel=lambda s=s: lane_mlp.launch(*s, save=True),
+            plain=lambda s=s: ref.mlp2_fwd_ref(*s),
+            library=lambda s=s: torch.baddbmm(
+                s[4][:, None], F.selu(torch.baddbmm(s[2][:, None], s[0],
+                                                    s[1])), s[3])))
+        a = _bwd_inputs(gen, B, din, h, dz, lanes=L)
+        bwd.append(dict(
+            shape=f"{name} {din}->{h}->{dz} L={L} B={B}", iters=10,
+            flops=4.0 * L * B * (din * h + h * dz),
+            bytes=4.0 * L * (B * (2 * dz + din + h) + din * h + h * dz
+                             + B * din + din * h + h + h * dz + dz),
+            kernel=lambda a=a: lane_mlp.launch_bwd(*a),
+            plain=lambda a=a: ref.mlp2_bwd_ref(*a),
+            library=lambda a=a: _library_mlp_bwd_lanes(*a)))
+    return {"lane_mlp_fwd_scale": fwd, "lane_mlp_bwd_scale": bwd}
 
 
 def _training_kernel_sets(gen) -> dict:
@@ -4072,11 +4212,17 @@ def _xlstm_blocks(synced: bool):
         xlstm.mlstm_block, xlstm.slstm_block = orig["mlstm"], orig["slstm"]
 
 
-def _busy(fn) -> dict:
+def _gemm_or_other(name: str) -> str:
+    low = name.lower()
+    return "gemm" if any(t in low for t in GEMM_NAMES) else "other"
+
+
+def _busy(fn, kind_of=_gemm_or_other, kinds=("gemm", "other")) -> dict:
     """One call of ``fn`` under the profiler, read from its raw events (a
     prefill's ~360k events are too many for ``_profiled``'s event tree):
-    the host wall, the card's busy time by kind (GEMMs and the rest) and
-    its share of the wall."""
+    the host wall, the card's busy time and launches by kind
+    (``kind_of(kernel name)``, one of ``kinds``: by default GEMMs and the
+    rest) and its share of the wall."""
     import time
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -4087,18 +4233,18 @@ def _busy(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kinds = {"gemm": 0.0, "other": 0.0}
-    n = 0
+    ms = dict.fromkeys(kinds, 0.0)
+    launches = dict.fromkeys(kinds, 0)
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != torch.autograd.DeviceType.CUDA:
             continue
-        low = e.name().lower()
-        kind = "gemm" if any(t in low for t in GEMM_NAMES) else "other"
-        kinds[kind] += (e.end_ns() - e.start_ns()) / 1e6
-        n += 1
-    return {"wall_ms_profiled": wall_ms, "device_ms": kinds,
-            "device_events": n,
-            "device_busy_share": sum(kinds.values()) / wall_ms}
+        kind = kind_of(e.name())
+        ms[kind] += (e.end_ns() - e.start_ns()) / 1e6
+        launches[kind] += 1
+    return {"wall_ms_profiled": wall_ms, "device_ms": ms,
+            "device_events": sum(launches.values()),
+            "device_launches": launches,
+            "device_busy_share": sum(ms.values()) / wall_ms}
 
 
 def phase_xlstm() -> dict:
@@ -4441,6 +4587,226 @@ def phase_guards() -> dict:
     _require(r["copies"] == 1, r)
     return res
 
+def _corr(a, b) -> float:
+    import torch
+    a, b = a - a.mean(), b - b.mean()
+    return float((a * b).sum() / torch.sqrt((a * a).sum() * (b * b).sum()))
+
+
+def _fit_summary(rs) -> list:
+    from repro_torch.tree import tree_leaves
+    return [{"epochs": r.epochs_run, "steps": r.steps_run,
+             "train": list(r.train_loss), "val": list(r.val_loss),
+             "params": [t.detach().cpu() for t in tree_leaves(r.params)]}
+            for r in rs]
+
+
+def _fits_held(what: str, got: list, want: list) -> dict:
+    """Two fits of the same lanes: epochs and steps equal, every epoch's
+    train and val loss within TOL_LOSS relative; whether they are the same
+    bits, and the params' largest relative gap."""
+    same, loss_err, param_err = True, 0.0, 0.0
+    for g, w in zip(got, want):
+        _require((g["epochs"], g["steps"]) == (w["epochs"], w["steps"]),
+                 (what, g["epochs"], w["epochs"]))
+        for k in ("train", "val"):
+            a, b = np.asarray(g[k]), np.asarray(w[k])
+            loss_err = max(loss_err, float(np.max(np.abs(a - b)
+                                                  / np.abs(b))))
+            same &= bool(np.array_equal(a, b))
+        for a, b in zip(g["params"], w["params"]):
+            param_err = max(param_err, _relerr(a, b))
+            same &= bool(a.equal(b))
+    log(f"{what}: same bits {same}, loss rel err {loss_err:.3e}, params "
+        f"rel err {param_err:.3e}")
+    _require(loss_err <= TOL_LOSS, (what, loss_err))
+    return {"same_bits": same, "loss_rel_err": loss_err,
+            "param_rel_err": param_err}
+
+
+def _scale_rank(lanes: list, kw: dict) -> dict:
+    """One of phase 17c's two ranks, both on cuda:0 over gloo: the cut
+    lanes over a lane mesh of 2, then over lane 1 x data 2 with the rows
+    split (each rank records the rows it keeps of each lane)."""
+    import torch
+    from repro_torch.core import autoencoder as ae
+    from repro_torch.core import training
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.tree import tree_map
+    torch.cuda.set_device(0)
+    specs = [training.LaneSpec(tree_map(lambda t: t.cuda(), p),
+                               {"x": x.cuda()}, s) for p, x, s in lanes]
+    loss = ae.make_masked_recon_loss(True)
+    out, held = {}, []
+    inner = training._split_slab
+
+    def split(data, seed, val_frac, dev, rows):
+        tr, val, n_tr, loc = inner(data, seed, val_frac, dev, rows)
+        held.append(len(tr["x"]) + len(val["x"]))
+        return tr, val, n_tr, loc
+    training._split_slab = split
+    for name, mesh_kw, shard in (("lane2", dict(lane=2), False),
+                                 ("rows2", dict(lane=1, data=2), True)):
+        held.clear()
+        t0 = time.perf_counter()
+        rs = training.train_lanes(specs, loss,
+                                  mesh=meshlib.make_lane_mesh(**mesh_kw),
+                                  shard_rows=shard, **kw)
+        torch.cuda.synchronize()
+        out[name] = {"fits": _fit_summary(rs), "held": list(held),
+                     "wall_s": time.perf_counter() - t0,
+                     "device": str(rs[0].params["enc"]["w0"].device)}
+    return out
+
+
+SCALE_KERNELS = ("lane_mlp_fwd_kernel", "lane_mlp_bwd_kernel", "other")
+
+
+def _scale_profile(fn) -> dict:
+    """``_busy`` with the card's kernels sorted into the lane-MLP pair and
+    the rest, and each kind's mean time a launch."""
+    prof = _busy(fn, lambda name: next((k for k in SCALE_KERNELS[:-1]
+                                        if k in name), "other"),
+                 SCALE_KERNELS)
+    prof["kernels"] = {k: {"launches": n, "ms": prof["device_ms"][k],
+                           "us_per_launch": 1e3 * prof["device_ms"][k]
+                           / max(n, 1)}
+                       for k, n in prof["device_launches"].items()}
+    return prof
+
+
+def phase_scale() -> dict:
+    """Phase 17: (a) the million-row workload at full size on the card
+    through a lane mesh of one; (b) its cut, card against CPU; (c) the cut
+    over two ranks sharing the card."""
+    import torch
+    from repro_torch.core import autoencoder as ae
+    from repro_torch.core import training
+    from repro_torch.data import scale
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.tree import tree_map
+    log("=== phase 17: scale (lane meshes, the million-row workload) ===")
+    c = SCALE
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lanes = scale.make_scale_lanes(
+        c["rows"], c["parties"], n_features=c["features"],
+        widths=c["widths"], seeds=c["seeds"], block_rows=c["block_rows"],
+        device="cuda")
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    L = len(lanes)
+    _require(all(sp.data["x"].device == torch.device("cuda", 0)
+                 for sp in lanes), "scale data not on cuda:0")
+    nbytes = scale.lane_bytes(lanes)
+    _require(nbytes == L * c["rows"] * c["features"] * 4, nbytes)
+    # a seed's parties share z row by row: party p's feature 1 and party
+    # p + 1's feature 0 read the same latent (noise apart); another seed's
+    # do not
+    x0, x1 = lanes[0].data["x"], lanes[1].data["x"]
+    shared = _corr(x0[:, 1], x1[:, 0])
+    other = _corr(x0[:, 1], lanes[c["parties"] + 1].data["x"][:, 0])
+    log(f"scale: {L} lanes x {c['rows']} rows x {c['features']} features, "
+        f"{nbytes} bytes on {x0.device} in {gen_s:.3f} s; corr of shared "
+        f"latent columns {shared:.4f}, across seeds {other:.4f}")
+    _require(shared > 0.4 and abs(other) < 0.02, (shared, other))
+    mesh = meshlib.make_lane_mesh(lane=1)
+    loss = ae.make_masked_recon_loss(True)
+    kw = dict(batch_size=c["batch"], max_epochs=c["epochs"],
+              patience=c["patience"])
+
+    def fit():
+        return training.train_lanes(lanes, loss, mesh=mesh, **kw)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rs = fit()
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    for k in ("lane_mlp_fwd", "lane_mlp_bwd"):
+        _require(launches[k] > 0, f"{k} never launched in phase 17")
+    t0 = time.perf_counter()
+    rs = fit()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    prof = _scale_profile(fit)
+    peak = torch.cuda.max_memory_allocated()
+    steps = rs[0].steps_run
+    _require(all(r.epochs_run == c["epochs"] and r.steps_run == steps
+                 for r in rs), [(r.epochs_run, r.steps_run) for r in rs])
+    tl = np.asarray([r.train_loss for r in rs])
+    _require(bool(np.isfinite(tl).all()), "non-finite scale loss")
+    _require(float(tl[:, 1].mean()) < float(tl[:, 0].mean()),
+             ("scale loss did not fall", tl.mean(0)))
+    rows = steps * c["batch"] * L
+    full = {"lanes": L, "bytes": nbytes, "generate_s": gen_s,
+            "cold_fit_s": cold_s, "warm_fit_s": warm_s,
+            "steps_per_s": steps / warm_s, "rows_per_s": rows / warm_s,
+            "steps": steps, "peak_bytes": peak,
+            "mean_train_loss_by_epoch": tl.mean(0).tolist(),
+            "final_mean_train_loss": float(tl[:, -1].mean()),
+            "lanes_falling": int((tl[:, 1] < tl[:, 0]).sum()),
+            "latent_corr": {"shared": shared, "across_seeds": other},
+            "profile": prof, "launches": launches}
+    log("scale (a): " + json.dumps(
+        {k: v for k, v in full.items() if k not in ("profile",
+                                                     "launches")}))
+    log("scale (a) profile: " + json.dumps(prof))
+    del lanes, rs, x0, x1
+    torch.cuda.empty_cache()
+
+    # (b) the cut, generated on the CPU, card against CPU
+    k = SCALE_CUT
+    cut = scale.make_scale_lanes(
+        k["rows"], k["parties"], n_features=c["features"],
+        widths=c["widths"], seeds=k["seeds"], block_rows=c["block_rows"],
+        device="cpu")
+    kw_cut = dict(batch_size=c["batch"], max_epochs=k["epochs"],
+                  patience=c["patience"])
+    card_specs = [training.LaneSpec(tree_map(lambda t: t.cuda(), sp.params),
+                                    {"x": sp.data["x"].cuda()}, sp.seed)
+                  for sp in cut]
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    card = _fit_summary(training.train_lanes(card_specs, loss, **kw_cut))
+    card_s = time.perf_counter() - t0
+    cut_launches = dict(ops.LAUNCHES)
+    t0 = time.perf_counter()
+    cpu = _fit_summary(training.train_lanes(cut, loss, **kw_cut))
+    cpu_s = time.perf_counter() - t0
+    check = _fits_held("scale (b) card vs cpu", card, cpu)
+
+    # (c) two ranks on the one card over gloo, against (b)'s card run
+    arrays = [(tree_map(lambda t: t.detach().clone(), sp.params),
+               sp.data["x"], sp.seed) for sp in cut]
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        outs = meshlib.run_ranks(_scale_rank, 2, arrays, kw_cut,
+                                 init_dir=d)
+        ranks_s = time.perf_counter() - t0
+    two = {}
+    for name in ("lane2", "rows2"):
+        for r, o in enumerate(outs):
+            _require(o[name]["device"].startswith("cuda"), o[name]["device"])
+            two[f"{name} rank{r}"] = _fits_held(
+                f"scale (c) {name} rank {r} vs one process",
+                o[name]["fits"], card)
+            two[f"{name} rank{r}"]["wall_s"] = o[name]["wall_s"]
+    half = k["rows"] // 2
+    held = [o["rows2"]["held"] for o in outs]
+    log(f"scale (c): rows each rank keeps of each lane {held}; the lane "
+        f"split keeps whole lanes ({[o['lane2']['held'] for o in outs]}); "
+        f"{ranks_s:.1f} s with the spawn")
+    _require(held == [[half] * k["parties"]] * 2, held)
+    return {"full": full, "cut": {"card_s": card_s, "cpu_s": cpu_s,
+                                  "check": check, "launches": cut_launches},
+            "two_ranks": two | {"wall_s_with_spawn": ranks_s,
+                                "rows_held": held},
+            "launches": launches}
+
+
 def _smi() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -4514,6 +4880,8 @@ def main(argv=None) -> int:
     done("xlstm")
     guard = phase_guards()
     done("guards")
+    scale = phase_scale()
+    done("scale")
 
     csrc = "src/repro_torch/kernels/csrc/"
     srcs = {"lane_mlp_fwd": ("lane_mlp_fwd.cu", "lane_mlp.py:57"),
@@ -4537,7 +4905,8 @@ def main(argv=None) -> int:
                     + runtime["launches"][name]
                     + lm_train["launches"][name]
                     + moe_audio["launches"][name]
-                    + vlm["launches"][name])
+                    + vlm["launches"][name]
+                    + scale["launches"][name])
         _require(launches > 0, f"{name} never launched on its path")
         kernels.append({
             "name": name, "route": "cuda", "source": csrc + srcs[name][0],
@@ -4661,6 +5030,22 @@ def main(argv=None) -> int:
         f"syncs a block; {smi}): " + json.dumps(
             {k: [r["copies"], r["sync_events"]["d2h"],
                  r["sync_events"]["h2d"]] for k, r in guard.items()}))
+    sf = scale["full"]
+    log(f"scale ({SCALE['rows']} rows x {SCALE['parties']} parties x "
+        f"{len(SCALE['seeds'])} seeds = {sf['lanes']} lanes, batch "
+        f"{SCALE['batch']}, {SCALE['epochs']} epochs; {smi}): " + json.dumps(
+            {k: sf[k] for k in ("generate_s", "cold_fit_s", "warm_fit_s",
+                                "steps_per_s", "rows_per_s", "peak_bytes",
+                                "final_mean_train_loss")}
+            | {"busy_share": sf["profile"]["device_busy_share"],
+               "lane_mlp_us_per_launch": {
+                   k: v["us_per_launch"]
+                   for k, v in sf["profile"]["kernels"].items()},
+               "cut_card_vs_cpu_loss_rel_err": scale["cut"]["check"][
+                   "loss_rel_err"],
+               "two_ranks": {k: [v["same_bits"], v["loss_rel_err"]]
+                             for k, v in scale["two_ranks"].items()
+                             if isinstance(v, dict) and "same_bits" in v}}))
     log("details: " + json.dumps({"timing": timing, "serve": serve,
                                   "train": train, "train_time": train_time,
                                   "turns": turns, "g3_limit": limit,
@@ -4670,6 +5055,7 @@ def main(argv=None) -> int:
                                   "runtime": runtime, "lm_train": lm_train,
                                   "moe_audio": moe_audio, "vlm": vlm,
                                   "xlstm": xlstm, "guards": guard,
+                                  "scale": scale,
                                   "elapsed_s": elapsed,
                                   "wrappers": wrappers,
                                   "torch": torch.__version__,

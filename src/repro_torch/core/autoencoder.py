@@ -116,12 +116,18 @@ def recon_loss(params: dict, batch: dict) -> torch.Tensor:
     return _mean_rows(torch.square(x - _reconstruct(params, x)))
 
 
-def _masked_mean(x, x_hat, fm, rw):
+def _masked_terms(x, x_hat, fm, rw):
+    """The masked loss's numerator (the row-weighted sum of per-row mean
+    squared errors) and its denominator (the row weights' sum)."""
     se = torch.square(x - x_hat) * fm.unsqueeze(-2)
     per_row = torch.sum(se, dim=-1) / torch.clamp(
         torch.sum(fm, dim=-1, keepdim=True), min=1.0)
-    return torch.sum(per_row * rw, dim=-1) / torch.clamp(
-        torch.sum(rw, dim=-1), min=1.0)
+    return torch.sum(per_row * rw, dim=-1), torch.sum(rw, dim=-1)
+
+
+def _masked_mean(x, x_hat, fm, rw):
+    num, den = _masked_terms(x, x_hat, fm, rw)
+    return num / torch.clamp(den, min=1.0)
 
 
 def masked_recon_loss(params: dict, batch: dict) -> torch.Tensor:
@@ -132,6 +138,17 @@ def masked_recon_loss(params: dict, batch: dict) -> torch.Tensor:
     x = batch["x"]
     return _masked_mean(x, _reconstruct(params, x), batch["mask"],
                         batch["row_w"])
+
+
+def _masked_recon_terms(params: dict, batch: dict):
+    x = batch["x"]
+    return _masked_terms(x, _reconstruct(params, x), batch["mask"],
+                         batch["row_w"])
+
+
+# the numerator and the row-weight sum, for rows summed across ranks
+# (``training.train_lanes(shard_rows=True)``)
+masked_recon_loss.row_terms = _masked_recon_terms
 
 
 def make_recon_loss(use_kernel: bool = False):
@@ -165,4 +182,13 @@ def _fused_masked_recon_loss(params: dict, batch: dict) -> torch.Tensor:
 
 _fused_masked_recon_loss.cache_key = (
     "repro.core.autoencoder.make_masked_recon_loss", True)
+
+
+def _fused_masked_recon_terms(params: dict, batch: dict):
+    x = batch["x"]
+    return _masked_terms(x, fused_reconstruct(params, x), batch["mask"],
+                         batch["row_w"])
+
+
+_fused_masked_recon_loss.row_terms = _fused_masked_recon_terms
 

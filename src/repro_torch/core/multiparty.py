@@ -116,9 +116,9 @@ def run_apcvfl_k_replicated(scenarios, *, seeds, lam: float = HP.lam,
     equal-shape scenario per seed; one ``RunResult`` per seed matching
     ``run_apcvfl_k(scenarios[i], seed=seeds[i], ...)`` within float
     tolerance.  ``exchange`` is one transform shared by every seed (each
-    seed's noise keyed by that seed) or one per seed; ``mesh`` is not
-    ported yet and raises."""
-    protocol.refuse_unported("run_apcvfl_k_replicated", mesh=mesh)
+    seed's noise keyed by that seed) or one per seed; ``mesh``
+    (``launch.mesh.make_lane_mesh``) splits every stage's lanes over its
+    ranks."""
     scs, seeds = protocol.normalize_replicas("run_apcvfl_k_replicated",
                                              scenarios, seeds)
     if not seeds:
@@ -128,4 +128,4 @@ def run_apcvfl_k_replicated(scenarios, *, seeds, lam: float = HP.lam,
         use_kernel=use_kernel, ablation=ablation, init_params=init_params,
         train_kw=dict(batch_size=batch_size, max_epochs=max_epochs,
                       patience=patience, lr=lr, perm_fn=perm_fn),
-        dev=resolve_device(device), exchange=exchange)
+        dev=resolve_device(device), exchange=exchange, mesh=mesh)

@@ -109,8 +109,8 @@ def run_apcvfl_replicated(scenarios, *, seeds, lam: float = HP.lam,
     shared by every replica (each replica's noise keyed by its seed, so a
     lane receives its sequential run's latents) or one per replica,
     entries may be None (a defense grid as lanes, ``defense.dp_frontier``).
-    ``mesh`` is not ported yet and raises."""
-    protocol.refuse_unported("run_apcvfl_replicated", mesh=mesh)
+    ``mesh`` (``launch.mesh.make_lane_mesh``) splits every stage's lanes
+    over its ranks (``training.train_lanes``)."""
     scs, seeds = protocol.normalize_replicas("run_apcvfl_replicated",
                                              scenarios, seeds)
     if not seeds:
@@ -120,7 +120,7 @@ def run_apcvfl_replicated(scenarios, *, seeds, lam: float = HP.lam,
         use_kernel=use_kernel, ablation=ablation, init_params=init_params,
         train_kw=dict(batch_size=batch_size, max_epochs=max_epochs,
                       patience=patience, lr=lr, perm_fn=perm_fn),
-        dev=resolve_device(device), exchange=exchange)
+        dev=resolve_device(device), exchange=exchange, mesh=mesh)
 
 
 def run_local_baseline(sc, seed: int = 0, *, device="cuda") -> dict:
@@ -171,9 +171,10 @@ def run_apcvfl_aligned_only_replicated(
     ``train_lanes`` call (2S g1 lanes, S g2 lanes); the same contract as
     ``run_apcvfl_replicated``.  With one seed this is
     ``run_apcvfl_aligned_only``: the reference runs its g1s and its g2 as
-    lanes there too."""
-    protocol.refuse_unported("run_apcvfl_aligned_only_replicated",
-                             mesh=mesh)
+    lanes there too.  ``mesh`` splits every stage's lanes over its
+    ranks."""
+    if mesh is not None:
+        training.check_lane_mesh(mesh)
     scs, seeds = protocol.normalize_replicas(
         "run_apcvfl_aligned_only_replicated", scenarios, seeds)
     if not seeds:
@@ -183,7 +184,7 @@ def run_apcvfl_aligned_only_replicated(
                       else init_params[i], ROLES[:3], ROLES[1:2], dev)
              for i, (sc, s) in enumerate(zip(scs, seeds))]
     train_kw = dict(batch_size=batch_size, max_epochs=max_epochs,
-                    patience=patience, lr=lr, perm_fn=perm_fn)
+                    patience=patience, lr=lr, perm_fn=perm_fn, mesh=mesh)
     channels = [comm.Channel() for _ in seeds]
     cells = []                        # (xa, xp, y) aligned rows per seed
     for sc, ch in zip(scs, channels):

@@ -49,16 +49,6 @@ from repro_torch.core.psi import id_positions, psi
 from repro_torch.experiments.results import RunResult
 
 
-def refuse_unported(fn_name: str, *, mesh=None) -> None:
-    """Raise for the arguments whose machinery the port does not have
-    yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{fn_name}(mesh=...): lane sharding across devices is not "
-            f"ported yet (ROADMAP.md Queue 1 item 10, the multi-device "
-            f"slice)")
-
-
 def normalize_replicas(fn_name: str, scenarios, seeds):
     """Shared contract of the ``*_replicated`` entry points: int seeds,
     one scenario (anything with an ``active`` party) broadcast to every
@@ -172,7 +162,7 @@ def run_protocol(scs: Sequence, seeds: Sequence[int], *, k_party: bool,
                  lanes_g3: bool, lam: float, kind: str, use_kernel: bool,
                  ablation: bool, init_params: Optional[Sequence[dict]],
                  train_kw: dict, dev: torch.device,
-                 exchange=None) -> List[RunResult]:
+                 exchange=None, mesh=None) -> List[RunResult]:
     """Steps 1-4 for S seed replicas of equal-shape scenarios, every stage
     one ``train_lanes`` call over all seeds; with ``lanes_g3=False`` (one
     seed) g3 trains through ``training.train`` on ``distill.make_loss``,
@@ -187,6 +177,9 @@ def run_protocol(scs: Sequence, seeds: Sequence[int], *, k_party: bool,
     under ``(seed=s, link=j)``.  ``ablation`` skips steps 1-2 and trains
     g3 on an all-zero teacher and mask."""
     S = len(seeds)
+    if mesh is not None:
+        training.check_lane_mesh(mesh)
+    lanes_kw = dict(train_kw, mesh=mesh)
     exchanges = comm.normalize_exchange(exchange, S)
     n_p = len(passives(scs[0]))
     if k_party:
@@ -220,7 +213,7 @@ def run_protocol(scs: Sequence, seeds: Sequence[int], *, k_party: bool,
                                                s))
                 lanes += [training.LaneSpec(ii[r], {"x": x}, s + j + 1)
                           for j, (r, x) in enumerate(zip(p_roles, xp))]
-            g1, sec = _timed(training.train_lanes, lanes, recon, **train_kw)
+            g1, sec = _timed(training.train_lanes, lanes, recon, **lanes_kw)
             K = n_p + 1
 
             # --- THE exchange per link, then S g2 lanes --------------------
@@ -241,7 +234,7 @@ def run_protocol(scs: Sequence, seeds: Sequence[int], *, k_party: bool,
                 zjs.append(torch.cat(blocks, dim=1))
             g2, sec = _timed(training.train_lanes, [
                 training.LaneSpec(ii["g2"], {"x": zj}, s + g2_seed)
-                for zj, s, ii in zip(zjs, seeds, ini)], recon, **train_kw)
+                for zj, s, ii in zip(zjs, seeds, ini)], recon, **lanes_kw)
             for log, r2 in zip(logs, g2):
                 log.record("g2", sec, {"g2": r2})
             zts = [ae.fused_encode(r2.params, zj) for r2, zj in zip(g2, zjs)]
@@ -254,7 +247,7 @@ def run_protocol(scs: Sequence, seeds: Sequence[int], *, k_party: bool,
         if lanes_g3:
             g3, sec = _timed(training.train_lanes, specs,
                              distill.make_lanes_loss(lam, kind, use_kernel),
-                             **train_kw)
+                             **lanes_kw)
         else:
             (sp,) = specs
             r3, sec = _timed(training.train, sp.params, sp.data,

@@ -4,8 +4,9 @@ RunResult``; the port of ``repro.experiments.methods``.
 
 Each adapter forwards ``spec.params`` as keyword overrides to the
 underlying ``run_*`` function, whose defaults are the paper's settings
-(``configs.apcvfl_paper.TABULAR``), and ``device`` to where it runs.
-Importing this module registers every adapter (the registry does so
+(``configs.apcvfl_paper.TABULAR``), and ``device`` to where it runs;
+the replicated adapters also take ``mesh``, the lane mesh ``sweep``
+builds from a spec's ``devices``.  Importing this module registers every adapter (the registry does so
 lazily on first lookup).
 """
 from __future__ import annotations
@@ -44,14 +45,15 @@ def _apcvfl(scenario, spec: MethodSpec, *, seed: int = 0,
 
 
 @register_replicas("apcvfl")
-def _apcvfl_replicated(scenarios, spec: MethodSpec, *, seeds,
+def _apcvfl_replicated(scenarios, spec: MethodSpec, *, seeds, mesh=None,
                        device="cuda"):
     """Seed groups through the replica-lane runners: every protocol stage
     S stacked lanes (K-party cells S * K g1 lanes)."""
     run = (multiparty.run_apcvfl_k_replicated
            if hasattr(scenarios[0], "passives")
            else pipeline.run_apcvfl_replicated)
-    return run(scenarios, seeds=seeds, device=device, **spec.params)
+    return run(scenarios, seeds=seeds, mesh=mesh, device=device,
+               **spec.params)
 
 
 @register_method("serve_smoke", supports_multiparty=True,
@@ -137,9 +139,9 @@ def _apcvfl_aligned_only(scenario, spec: MethodSpec, *, seed: int = 0,
 
 @register_replicas("apcvfl_aligned_only")
 def _apcvfl_aligned_only_replicated(scenarios, spec: MethodSpec, *, seeds,
-                                    device="cuda"):
+                                    mesh=None, device="cuda"):
     return pipeline.run_apcvfl_aligned_only_replicated(
-        scenarios, seeds=seeds, device=device, **spec.params)
+        scenarios, seeds=seeds, mesh=mesh, device=device, **spec.params)
 
 
 @register_method("apcvfl_dp", supports_multiparty=True,
@@ -157,9 +159,10 @@ def _apcvfl_dp(scenario, spec: MethodSpec, *, seed: int = 0,
 
 @register_replicas("apcvfl_dp")
 def _apcvfl_dp_replicated(scenarios, spec: MethodSpec, *, seeds,
-                          device="cuda"):
+                          mesh=None, device="cuda"):
     return rb_defense.run_apcvfl_dp_replicated(scenarios, seeds=seeds,
-                                               device=device, **spec.params)
+                                               mesh=mesh, device=device,
+                                               **spec.params)
 
 
 @register_method("attack_inversion",

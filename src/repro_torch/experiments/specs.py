@@ -92,11 +92,12 @@ class ExperimentSpec:
 
     ``devices`` requests mesh-sharded replicated dispatch: a dict of mesh
     axis sizes, e.g. ``{"lane": 4}`` or ``{"lane": 2, "data": 2}``
-    (``lane`` shards the replica-lane axis across devices, ``data``
-    reserves devices for row sharding).  The port's ``sweep()`` refuses a
-    non-empty ``devices`` before building anything: lane sharding is not
-    ported yet (ROADMAP.md Queue 1 item 10).  Empty (the default) keeps
-    every dispatch single-device."""
+    (``lane`` splits the replica-lane axis across ranks, ``data``
+    reserves ranks for row sharding).  ``sweep()`` builds the mesh with
+    ``repro_torch.launch.mesh.make_lane_mesh``, raising before any run
+    when the world (``torchrun --nproc-per-node N``) has a different
+    number of ranks.  Empty (the default) keeps every dispatch on one
+    rank."""
     name: str
     dataset: str = "bcw"
     methods: Tuple[MethodSpec, ...] = ()

@@ -16,8 +16,12 @@ and ``replicate=False`` specs take the sequential per-seed path.  Result
 order and values are the same either way.
 
 Validation is eager: unknown method names, K > 2 grids holding 2-party
-methods, duplicate labels, unknown params and a non-empty ``devices``
-raise BEFORE any scenario is built or any model trained.
+methods, duplicate labels, unknown params and bad ``devices`` raise
+BEFORE any scenario is built or any model trained.  A spec's ``devices``
+builds one lane mesh up front (``launch.mesh.make_lane_mesh``), which
+raises on a world too small before any run; it is threaded into the
+replicated dispatches only, as ``mesh=``.  Every rank of a mesh runs the
+whole sweep and returns every result.
 """
 from __future__ import annotations
 
@@ -68,11 +72,6 @@ def _validate(spec: ExperimentSpec) -> None:
         if not (isinstance(n, int) and n >= 1):
             raise ValueError(f"devices[{ax!r}] must be a positive int, "
                              f"got {n!r}")
-    if spec.devices:
-        raise NotImplementedError(
-            f"ExperimentSpec {spec.name!r}: devices={spec.devices} asks "
-            f"for lane sharding across devices, which is not ported yet "
-            f"(ROADMAP.md Queue 1 item 10, the multi-device slice)")
     max_k = max(spec.n_parties, default=2)
     seen_labels = set()
     for m in spec.methods:
@@ -122,8 +121,17 @@ def sweep(spec: ExperimentSpec, *,
     self-describing.  Seed groups dispatch through replica-lane runners
     where available (module docstring); results keep the reference's
     order (cell-major, methods inside each cell) however they were
-    computed."""
+    computed.
+
+    ``spec.devices`` builds a lane mesh up front (one mesh for the whole
+    sweep; ``make_lane_mesh`` raises early on a rank shortfall) and
+    threads it into every replicated dispatch as ``mesh=``; sequential
+    dispatches ignore it."""
     _validate(spec)
+    mesh = None
+    if spec.devices:
+        from repro_torch.launch.mesh import make_lane_mesh
+        mesh = make_lane_mesh(**spec.devices)
     ds_cache: dict = {}
     results: List[RunResult] = []
     for group in _seed_groups(spec):
@@ -141,8 +149,11 @@ def sweep(spec: ExperimentSpec, *,
             mspec = replace(m, params={**spec.overrides, **m.params})
             if (spec.replicate and entry.supports_replicas
                     and len(group) > 1):
+                # mesh only when requested: registered runners that
+                # take none keep their signature working untouched
+                extra = {} if mesh is None else {"mesh": mesh}
                 rs = entry.replicated_fn(scenarios, mspec, seeds=seeds,
-                                         device=device)
+                                         device=device, **extra)
                 if len(rs) != len(group):
                     raise RuntimeError(
                         f"replicated runner for {m.method!r} returned "

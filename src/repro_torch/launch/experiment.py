@@ -14,15 +14,25 @@ Run:  PYTHONPATH=src python -m repro_torch.launch.experiment SPEC.json \\
 
 ``--smoke`` runs a tiny built-in spec (bcw, 120 aligned rows, 2 epochs,
 the six core methods).
+
+A spec with ``devices`` (e.g. ``{"lane": 2}``) needs that many ranks:
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.experiment \
+        SPEC.json --device cpu
+Under ``torchrun`` each rank joins the world (gloo on the CPU, NCCL with
+one card a rank, ``cuda:LOCAL_RANK``), runs the whole sweep, and only
+rank 0 prints records and writes ``--out``.  A spec with
+``{"lane": 1}`` runs without a launcher (a world of one).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.experiments import ExperimentSpec, MethodSpec, sweep, tidy
@@ -84,12 +94,31 @@ def main(argv=None) -> int:
         with open(args.spec) as fh:
             spec = ExperimentSpec.from_json(fh.read())
     device = resolve_device(args.device)
-    print(f"device: {torch.cuda.get_device_name(device)}"
-          if device.type == "cuda" else f"device: {device}")
+    launched = int(os.environ.get("WORLD_SIZE", "1")) > 1
+    if launched:                      # torchrun: join its world
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+            torch.cuda.set_device(device)
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    try:
+        return _run(args, spec, device,
+                    lead=not launched or dist.get_rank() == 0)
+    finally:
+        if launched:
+            dist.destroy_process_group()
+
+
+def _run(args, spec: ExperimentSpec, device: torch.device,
+         lead: bool) -> int:
+    say = print if lead else (lambda *a, **k: None)
+    say(f"device: {torch.cuda.get_device_name(device)}"
+        if device.type == "cuda" else f"device: {device}")
 
     t0 = time.time()
-    results = sweep(spec, progress=None if args.quiet else print,
+    results = sweep(spec, progress=None if args.quiet else say,
                     device=device)
+    if not lead:
+        return 0
     records = tidy(results)
     payload = {"spec": spec.to_dict(), "records": records,
                "elapsed_s": round(time.time() - t0, 1)}

@@ -60,7 +60,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import expand_heads
-from repro_torch.models.common import NEG_INF, causal_mask, rope
+from repro_torch.models.common import NEG_INF, causal_mask, rope, split_last
 from repro_torch.sharding.policy import ParamDef
 
 
@@ -84,7 +84,7 @@ def schema_attention(cfg: ModelConfig) -> dict:
 
 
 def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
-    return x.reshape(x.shape[:-1] + (n, hd))
+    return split_last(x, (n, hd))
 
 
 def _gqa_expand(kv: torch.Tensor, H: int, K: int) -> torch.Tensor:

@@ -1,6 +1,11 @@
-"""Shared model pieces: norms, RoPE, embeddings, attention masks (a copy
-of ``repro.models.common``; ``seq_shard`` has no meaning without a mesh and
-is left out).
+"""Shared model pieces: norms, RoPE, embeddings, attention masks and the
+sequence-parallel constraint (a copy of ``repro.models.common``).
+
+``seq_shard`` is the reference's sharding constraint as a ``DTensor``
+``redistribute``: it acts only on a ``DTensor`` (the dry run's meshes,
+``launch/dryrun.py``) with ``cfg.seq_parallel`` and ``cfg.mesh_axes``
+set, and is a no-op everywhere else, as the reference's is without a
+mesh.
 
 Where the reference mixes dtypes in a product (a bf16 activation against
 an fp32 norm scale, the unembedding's cast), the promotion is written out:
@@ -8,9 +13,11 @@ an fp32 norm scale, the unembedding's cast), the promotion is written out:
 from __future__ import annotations
 
 import functools
+import sys
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.sharding.policy import ParamDef
 
@@ -90,6 +97,105 @@ def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
     return x @ p["out"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# sharding constraints (DTensor only)
+# ---------------------------------------------------------------------------
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a ``DTensor``; its module is loaded only where a
+    mesh exists, so nothing else pays for the import."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def constrain(x: torch.Tensor, spec: tuple) -> torch.Tensor:
+    """``x`` redistributed to ``spec`` (``sharding.policy``'s tuples) over
+    its own mesh, dropping what the mesh does not divide."""
+    from repro_torch.sharding.policy import _divisible, placements
+    mesh = x.device_mesh
+    want = placements(_divisible(tuple(x.shape), spec, mesh), mesh)
+    return x if tuple(x.placements) == want else x.redistribute(mesh, want)
+
+
+def unshard_dim(x: torch.Tensor, dim: int,
+                reduce_partial: bool = False) -> torch.Tensor:
+    """A DTensor with tensor dim ``dim`` gathered whole (its other
+    placements kept; with ``reduce_partial`` its pending partial sums
+    reduced too), for an op whose DTensor rule fails on a sharded
+    ``dim``; anything else as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    dim %= x.dim()
+    want = tuple(Replicate() if (p.is_shard() and p.dim == dim)
+                 or (reduce_partial and p.is_partial()) else p
+                 for p in x.placements)
+    return x if want == tuple(x.placements) else x.redistribute(
+        x.device_mesh, want)
+
+
+def split_last(x: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """``x``'s last dim split into ``shape`` (heads, head dim).  A DTensor
+    whose last dim is sharded over mesh axes that do not divide
+    ``shape[0]`` is gathered on that dim first: DTensor refuses to split a
+    dim unevenly (GQA's kv heads on a wider tp axis)."""
+    if is_dtensor(x):
+        last = x.dim() - 1
+        m = 1
+        for i, p in enumerate(x.placements):
+            if p.is_shard() and p.dim == last:
+                m *= x.device_mesh.size(i)
+        if shape[0] % m:
+            x = unshard_dim(x, last)
+    return x.reshape(tuple(x.shape[:-1]) + tuple(shape))
+
+
+class _MergeLast(torch.autograd.Function):
+    """``x``'s last two dims merged, whose backward splits the gradient
+    through ``split_last``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.split = tuple(x.shape[-2:])
+        return x.reshape(tuple(x.shape[:-2]) + (-1,))
+
+    @staticmethod
+    def backward(ctx, g):
+        return split_last(g, ctx.split)
+
+
+def merge_last(x: torch.Tensor) -> torch.Tensor:
+    """``x``'s last two dims (heads, head dim) merged into one.  On a
+    DTensor the backward splits the gradient through ``split_last``: the
+    reshape's own backward would split a tp-sharded dim by a head count
+    the axis does not divide, which DTensor refuses."""
+    if is_dtensor(x):
+        return _MergeLast.apply(x)
+    return x.reshape(tuple(x.shape[:-2]) + (-1,))
+
+
+def remat(block, p: dict, cfg, *args):
+    """``block(p, cfg, *args)``, recomputed in the backward under
+    ``cfg.remat`` where autograd records (``jax.checkpoint`` in the
+    reference)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(block, p, cfg, *args, use_reentrant=False)
+    return block(p, cfg, *args)
+
+
+def seq_shard(x: torch.Tensor, cfg) -> torch.Tensor:
+    """Sequence-parallel constraint on the residual stream (B, S, d): the
+    seq dim on the tp axis, the batch on dp (Korthikanti et al.).  No-op
+    unless ``x`` is a DTensor, ``cfg.seq_parallel`` and ``cfg.mesh_axes``
+    are set."""
+    if not (getattr(cfg, "seq_parallel", False) and cfg.mesh_axes
+            and is_dtensor(x)):
+        return x
+    from repro_torch.sharding.policy import batch_pspec
+    return constrain(x, (batch_pspec(cfg.mesh_axes), "model")
+                     + (None,) * (x.dim() - 2))
 
 
 # ---------------------------------------------------------------------------

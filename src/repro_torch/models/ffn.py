@@ -19,8 +19,12 @@ Where a straight translation would differ:
   CPU, and the gradient of the dispatch sums a token's slots in the same
   order.  No atomic ``index_add_`` / ``scatter_add_`` runs, so two calls
   on the card give the same bits;
-* the reference's ``seq_parallel`` sharding constraint has no meaning on
-  one device and is left out (ROADMAP Queue 1 item 10 owns meshes).
+* the reference's ``seq_parallel`` reshard before routing is a
+  ``DTensor`` ``redistribute`` (``common.constrain``), a no-op without a
+  mesh; under a mesh (the dry run) the router probabilities are
+  replicated before the sort, and the slot math (``argsort``,
+  ``searchsorted``, slot writes), which ``DTensor`` has no sharding rule
+  for, runs on each rank's replicated expert ids.
 """
 from __future__ import annotations
 
@@ -32,7 +36,8 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.sharding.policy import ParamDef
+from repro_torch.models.common import constrain, is_dtensor
+from repro_torch.sharding.policy import ParamDef, batch_pspec
 
 
 def schema_ffn(cfg: ModelConfig) -> dict:
@@ -100,10 +105,20 @@ def route(router: torch.Tensor, cfg: ModelConfig,
     N = xt.shape[0]
     E, k = cfg.n_experts, cfg.experts_per_token
     probs = torch.softmax(xt.to(torch.float32) @ router, dim=-1)
+    if is_dtensor(probs):
+        # under a mesh the routes are decided on the probabilities
+        # replicated over it (the sort below then sees every expert)
+        from torch.distributed.tensor import Replicate
+        probs = probs.redistribute(probs.device_mesh,
+                                   [Replicate()] * probs.device_mesh.ndim)
     # ties in expert-id order, as jax.lax.top_k
     w, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     topw, topi = w[:, :k], idx[:, :k]
     topw = topw / torch.sum(topw, dim=-1, keepdim=True)
+    if is_dtensor(topi):
+        # the slot math (argsort, searchsorted, slot writes) has no DTensor
+        # rule: it runs on this rank's replicated expert ids
+        topi = topi.to_local()
     C = capacity(cfg, N)
     eid = topi.reshape(N * k)
     order = torch.argsort(eid, stable=True)
@@ -183,6 +198,11 @@ def moe(p: dict, cfg: ModelConfig, x: torch.Tensor):
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.experts_per_token
     N = B * S
+    if cfg.seq_parallel and cfg.mesh_axes and is_dtensor(x):
+        # under sequence parallelism the residual stream is seq-sharded on
+        # the tp axis: re-shard tokens to batch-only before routing so the
+        # dispatch crosses only the ep axis (the reference's constraint)
+        x = constrain(x, (batch_pspec(cfg.mesh_axes), None, None))
     xt = x.reshape(N, d)
     r = route(p["router"], cfg, xt)
     C = r.capacity

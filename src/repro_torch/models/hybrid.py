@@ -14,23 +14,24 @@ layer's intra-chunk SSD through the SSD kernel.
 xLSTM [arXiv:2405.04517]: G = n_layers / slstm_period groups of
 ``slstm_period - 1`` mLSTM blocks (leaves (G, period-1, ...)) closed by one
 sLSTM block (leaves (G, ...)); Python loops take the place of the two
-scans here too.  With ``cfg.remat`` each block is recomputed in the
-backward (``torch.utils.checkpoint``, as the reference's
-``jax.checkpoint``), where autograd records.  The decode cache keeps the
-reference's ``XLSTMCache`` layout, fp32, and is updated in place.
+scans here too.  The decode cache keeps the reference's ``XLSTMCache``
+layout, fp32, and is updated in place.
+
+In both stacks, with ``cfg.remat`` each block is recomputed in the
+backward (``common.remat``: ``torch.utils.checkpoint``, as the
+reference's ``jax.checkpoint``), where autograd records.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, xlstm
-from repro_torch.models.common import (embed, norm_apply, schema_embed,
-                                       schema_norm, unembed)
+from repro_torch.models.common import (embed, norm_apply, remat,
+                                       schema_embed, schema_norm, unembed)
 from repro_torch.models.transformer import (_layers, _positions, block_decode,
                                             block_fwd, schema_block)
 from repro_torch.sharding.policy import DTYPES, stack
@@ -69,9 +70,9 @@ def zamba_hidden(params: dict, cfg: ModelConfig, inputs: dict):
     positions = _positions(B, S, x.device)
     for group in _mamba_groups(params, cfg):
         for lp in group:
-            x = mamba2.mamba_block(lp, cfg, x)
-        x, _ = block_fwd(params["shared"], cfg, x, positions,
-                         cfg.sliding_window)
+            x = remat(mamba2.mamba_block, lp, cfg, x)
+        x, _ = remat(block_fwd, params["shared"], cfg, x, positions,
+                     cfg.sliding_window)
     x = norm_apply(params["ln_f"], x, cfg.norm)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -153,21 +154,13 @@ def _xlstm_layers(params: dict, cfg: ModelConfig) -> list:
             for gp in _layers(params["groups"], _xlstm_groups(cfg))]
 
 
-def _remat(block, cfg: ModelConfig, p: dict, x: torch.Tensor):
-    """``block(p, cfg, x)``, recomputed in the backward under ``cfg.remat``
-    where autograd records (``jax.checkpoint`` in the reference)."""
-    if cfg.remat and torch.is_grad_enabled():
-        return checkpoint(block, p, cfg, x, use_reentrant=False)
-    return block(p, cfg, x)
-
-
 def xlstm_hidden(params: dict, cfg: ModelConfig, inputs: dict):
     """Token inputs -> (final hidden states (B, S, d), MoE aux 0.0)."""
     x = embed(params["embed"], inputs["tokens"]).to(DTYPES[cfg.dtype])
     for mls, sl in _xlstm_layers(params, cfg):
         for lp in mls:
-            x = _remat(xlstm.mlstm_block, cfg, lp, x)
-        x = _remat(xlstm.slstm_block, cfg, sl, x)
+            x = remat(xlstm.mlstm_block, lp, cfg, x)
+        x = remat(xlstm.slstm_block, sl, cfg, x)
     x = norm_apply(params["ln_f"], x, cfg.norm)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 

@@ -31,7 +31,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import expand_heads, prefix_sum
 from repro_torch.models.attention import needs_grad
-from repro_torch.models.common import norm_apply, schema_norm
+from repro_torch.models.common import (merge_last, norm_apply, schema_norm,
+                                       split_last)
 from repro_torch.sharding.policy import ParamDef
 
 
@@ -123,7 +124,9 @@ def ssd_chunked(cfg: ModelConfig, x, dt, A, Bm, Cm, init_state=None):
     Nc = S // Lc
     cdt = torch.bfloat16 if cfg.ssd_bf16 else torch.float32
     cs = prefix_sum((dt * A).reshape(B_, Nc, Lc, H), 2)   # (B,Nc,Lc,H)
-    if needs_grad(x, dt, A, Bm, Cm):
+    if needs_grad(x, dt, A, Bm, Cm) or x.is_meta:
+        # meta tensors (the dry run, launch/dryrun.py) have no kernel
+        # either: they take the reference's einsums too
         y_intra, states = _intra_chunk_train(x, dt, A, Bm, Cm, cs, Lc, cdt)
     else:
         y_intra, states = kops.ssd_intra_chunk(x, dt, A, Bm, Cm, Lc,
@@ -148,7 +151,6 @@ def ssd_chunked(cfg: ModelConfig, x, dt, A, Bm, Cm, init_state=None):
 
 def mamba_block(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Full-sequence forward. x: (B,S,d)."""
-    B, S, d = x.shape
     H, P = cfg.ssm_heads, cfg.ssm_head_dim
     G, N = cfg.ssm_groups, cfg.ssm_state
     h = norm_apply(p["ln"], x, cfg.norm)
@@ -158,11 +160,11 @@ def mamba_block(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     dt = softplus(dt.to(torch.float32) + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     f32 = torch.float32
-    xh = xin.to(f32).reshape(B, S, H, P)
-    y, _ = ssd_chunked(cfg, xh, dt, A, Bm.to(f32).reshape(B, S, G, N),
-                       Cm.to(f32).reshape(B, S, G, N))
+    xh = split_last(xin.to(f32), (H, P))
+    y, _ = ssd_chunked(cfg, xh, dt, A, split_last(Bm.to(f32), (G, N)),
+                       split_last(Cm.to(f32), (G, N)))
     y = y + xh * p["D"][:, None]
-    y = y.reshape(B, S, cfg.d_inner).to(x.dtype)
+    y = merge_last(y).to(x.dtype)
     y = y * F.silu(z)
     y = norm_apply(p["ln_gate"], y, cfg.norm)
     return x + y @ p["out_proj"]
@@ -202,9 +204,9 @@ def mamba_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     A = -torch.exp(p["A_log"])
     decay = torch.exp(dt * A)                                   # (B,H)
     f32 = torch.float32
-    xh = xin.to(f32).reshape(B, H, P)
-    Bh = expand_heads(Bm.to(f32).reshape(B, 1, G, N), H)[:, 0]  # (B,H,N)
-    Ch = expand_heads(Cm.to(f32).reshape(B, 1, G, N), H)[:, 0]
+    xh = split_last(xin.to(f32), (H, P))
+    Bh = expand_heads(split_last(Bm.to(f32)[:, None], (G, N)), H)[:, 0]
+    Ch = expand_heads(split_last(Cm.to(f32)[:, None], (G, N)), H)[:, 0]
     upd = torch.einsum("bh,bhn,bhp->bhnp", dt, Bh, xh)
     ssm = state.ssm
     ssm.mul_(decay[:, :, None, None]).add_(upd)

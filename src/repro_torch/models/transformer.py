@@ -6,7 +6,9 @@ Params keep the reference's stacked ``(L, ...)`` leaves and ``(d_in,
 d_out)`` weight layout, so a JAX parameter tree crosses with
 ``convert.to_torch``; a Python loop over the layers takes the place of
 ``lax.scan``, and the MoE aux loss is summed over the layers in layer
-order from an fp32 zero, as the scan's carry.
+order from an fp32 zero, as the scan's carry.  With ``cfg.remat`` each
+block (self or cross) is recomputed in the backward (``common.remat``),
+as the reference checkpoints it.
 
 Audio (``cfg.family == "audio"``, hubert) takes pre-embedded frames
 ``inputs["frames"]`` (B, S, d_model) and has no token table and no decode.
@@ -35,8 +37,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
-from repro_torch.models.common import (causal_mask, embed, norm_apply, rope,
-                                       schema_embed, schema_norm, unembed)
+from repro_torch.models.common import (causal_mask, embed, norm_apply, remat,
+                                       rope, schema_embed, schema_norm,
+                                       seq_shard, split_last, unembed)
 from repro_torch.sharding.policy import DTYPES, ParamDef, stack
 
 
@@ -137,7 +140,8 @@ def decoder_hidden(params: dict, cfg: ModelConfig, inputs: dict):
     positions = _positions(B, S, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _layers(params["blocks"], cfg.n_layers):
-        x, a = block_fwd(lp, cfg, x, positions, cfg.sliding_window)
+        x = seq_shard(x, cfg)         # a no-op without a mesh
+        x, a = remat(block_fwd, lp, cfg, x, positions, cfg.sliding_window)
         aux = aux + a
     x = norm_apply(params["ln_f"], x, cfg.norm)
     return x, aux
@@ -158,9 +162,9 @@ def block_fwd_cache(p: dict, cfg: ModelConfig, x: torch.Tensor,
     h = norm_apply(p["ln1"], x, cfg.norm)
     B, S, _ = h.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (h @ p["attn"]["wq"]).reshape(B, S, H, hd)
-    k = (h @ p["attn"]["wk"]).reshape(B, S, K, hd)
-    v = (h @ p["attn"]["wv"]).reshape(B, S, K, hd)
+    q = split_last(h @ p["attn"]["wq"], (H, hd))
+    k = split_last(h @ p["attn"]["wk"], (K, hd))
+    v = split_last(h @ p["attn"]["wv"], (K, hd))
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     if attn.use_kernels(cfg, x, q, k, v):
@@ -303,8 +307,9 @@ def vlm_hidden(params: dict, cfg: ModelConfig, inputs: dict):
     positions = _positions(B, S, x.device)
     for selfs, cross in _vlm_groups(params, cfg):
         for lp in selfs:
-            x, _ = block_fwd(lp, cfg, x, positions, cfg.sliding_window)
-        x = _cross_block_fwd(cross, cfg, x, img)
+            x, _ = remat(block_fwd, lp, cfg, x, positions,
+                         cfg.sliding_window)
+        x = remat(_cross_block_fwd, cross, cfg, x, img)
     x = norm_apply(params["ln_f"], x, cfg.norm)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 

@@ -40,7 +40,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ref import prefix_sum
-from repro_torch.models.common import norm_apply, schema_norm
+from repro_torch.models.common import (merge_last, norm_apply, schema_norm,
+                                       split_last)
 from repro_torch.models.mamba2 import softplus
 from repro_torch.sharding.policy import ParamDef
 
@@ -106,7 +107,7 @@ def schema_mlstm(cfg: ModelConfig) -> dict:
 
 
 def _heads(x: torch.Tensor, H: int, P: int) -> torch.Tensor:
-    return x.reshape(tuple(x.shape[:-1]) + (H, P))
+    return split_last(x, (H, P))
 
 
 def _qkv_gates(p: dict, xin: torch.Tensor, H: int, P: int):
@@ -173,8 +174,8 @@ def mlstm_block(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
     n_tot = scores.sum(dim=3) + n_inter                          # q.n
     den = torch.maximum(torch.abs(n_tot), _const(1.0, x.device))
-    y = (y_intra + y_inter) / den[..., None]
-    y = y.reshape(B, S, di).to(x.dtype)
+    y = (y_intra + y_inter) / den[..., None]               # (B,Nc,Lc,H,P)
+    y = merge_last(y.reshape(B, S, H, P)).to(x.dtype)
     y = norm_apply(p["ln_out"], y, cfg.norm) * silu(z)
     return x + y @ p["w_down"]
 
@@ -190,7 +191,6 @@ def mlstm_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
                  st: MLSTMState):
     """x: (B, 1, d) -> (y (B, 1, d), state).  ``st`` is updated in place:
     the returned state holds the same tensors."""
-    B = x.shape[0]
     di, H, P = _mlstm_dims(cfg)
     h = norm_apply(p["ln"], x, cfg.norm)
     xin, z = torch.split(h @ p["w_up"], di, dim=-1)
@@ -203,7 +203,7 @@ def mlstm_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
     num = (q[:, :, None, :] @ st.C)[:, :, 0]                     # (B,H,P)
     den = torch.maximum(torch.abs((q * st.n).sum(-1)),
                         _const(1.0, x.device))
-    y = (num / den[:, :, None]).reshape(B, 1, di).to(x.dtype)
+    y = merge_last(num / den[:, :, None])[:, None].to(x.dtype)
     y = norm_apply(p["ln_out"], y, cfg.norm) * silu(z)
     return x + y @ p["w_down"], st
 
@@ -239,13 +239,12 @@ def slstm_init_state(cfg: ModelConfig, batch: int,
 def _slstm_cell(p: dict, cfg: ModelConfig, xt: torch.Tensor,
                 st: SLSTMState) -> SLSTMState:
     """xt: (B, 4d) precomputed input projection (fp32)."""
-    B = xt.shape[0]
     H = cfg.n_heads
     P = cfg.d_model // H
     # einsum("bhp,hpq->bhq") as the one batched product it lowers to,
     # without einsum's host-side parsing once a token
     rec = torch.bmm(st.h.transpose(0, 1), p["r"]).transpose(0, 1)  # (B,H,4P)
-    g = xt.reshape(B, H, 4 * P) + rec + p["b"].reshape(H, 4 * P)
+    g = split_last(xt, (H, 4 * P)) + rec + p["b"].reshape(H, 4 * P)
     zt, it, ft, ot = torch.split(g, P, dim=-1)                   # (B,H,P)
     zt = torch.tanh(zt)
     ot = torch.sigmoid(ot)
@@ -260,7 +259,7 @@ def _slstm_cell(p: dict, cfg: ModelConfig, xt: torch.Tensor,
 
 def slstm_block(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """x: (B, S, d); one ``_slstm_cell`` a token."""
-    B, S, d = x.shape
+    B, S = x.shape[0], x.shape[1]
     hin = norm_apply(p["ln"], x, cfg.norm)
     xt = (hin @ p["wx"]).to(F32)                                 # (B,S,4d)
     st = slstm_init_state(cfg, B, device=x.device)
@@ -268,7 +267,7 @@ def slstm_block(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     for t in range(S):
         st = _slstm_cell(p, cfg, xt[:, t], st)
         hs.append(st.h)
-    y = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
+    y = merge_last(torch.stack(hs, dim=1)).to(x.dtype)
     y = norm_apply(p["ln_out"], y, cfg.norm)
     return x + y @ p["w_down"]
 

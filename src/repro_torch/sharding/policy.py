@@ -1,11 +1,35 @@
-"""Parameter schema: a copy of the schema half of
+"""Parameter schema and logical-axis sharding policy: the port of
 ``repro.sharding.policy``.
 
 Every model module describes its parameters as a dict tree of
-:class:`ParamDef` (shape, logical axes, init recipe).  ``init_params``
-materializes it as tensors and ``param_count`` counts it without
-allocating.  The logical axes are kept for the meshes of a later slice
-(ROADMAP Queue 1); nothing here reads them yet.
+:class:`ParamDef` (shape, logical axes, init recipe).  The same schema
+drives:
+
+* ``init_params``     -- materialize it as tensors on a device,
+* ``param_count``     -- count it without allocating,
+* ``pspec_tree``      -- one spec a leaf (below),
+* ``sharding_tree``   -- one ``DTensor`` placement list a leaf, for a mesh,
+* ``abstract_params`` -- ``meta`` tensors in place of the reference's
+  ``ShapeDtypeStruct`` stand-ins (the dry run's parameters).
+
+A spec is a tuple with one entry per tensor dim: ``None`` (replicated),
+a mesh axis name, or a tuple of names (a dim split over several mesh
+axes, major to minor): the content of the reference's ``P(...)``, so
+``tuple(P)`` compares with it directly.  ``placements(spec, mesh)`` turns
+a spec into one ``Shard``/``Replicate`` a MESH dim; it is the only place
+that knows ``DTensor``.  A mesh here is anything with ``mesh_dim_names``
+and ``shape`` (``torch.distributed.device_mesh.DeviceMesh``).
+
+Logical axes (resolved per mesh):
+  ``dp``    batch / data parallel          -> ("pod","data") or ("data",)
+  ``fsdp``  fully-sharded param dim        -> ("data",)
+  ``tp``    tensor parallel dim            -> ("model",)
+  ``ep``    expert parallel dim            -> ("pod","model") or ("model",)
+  ``vocab`` vocabulary dim                 -> ("model",)
+  ``lane``  replica-lane dim (the VFL lane -> ("lane",)
+            engine's stacked leading axis,
+            meshes from launch.mesh.make_lane_mesh)
+  ``None``  replicated
 
 A drawn leaf (``fan_in``, ``embed``, ``normal``, ``mamba_A``, ``dt_bias``,
 ``small``) is drawn in fp32 and cast to its dtype.  Where that fp32 draw
@@ -131,3 +155,111 @@ def init_params(schema: Any, gen: torch.Generator, dtype=torch.float32,
 
 def param_count(schema: Any) -> int:
     return int(sum(math.prod(d.shape) for d in leaves(schema)))
+
+
+# ---------------------------------------------------------------------------
+# logical axes -> mesh specs -> DTensor placements
+# ---------------------------------------------------------------------------
+
+def _rules(mesh_axes: tuple) -> dict:
+    multi_pod = "pod" in mesh_axes
+    return {
+        "dp": ("pod", "data") if multi_pod else ("data",),
+        "fsdp": ("data",),
+        "tp": ("model",),
+        "ep": ("pod", "model") if multi_pod else ("model",),
+        "vocab": ("model",),
+        "lane": ("lane",),
+        None: None,
+    }
+
+
+def resolve(axes: tuple, mesh_axes: tuple) -> tuple:
+    """Logical axes -> a spec (one entry a dim)."""
+    r = _rules(tuple(mesh_axes))
+    out = []
+    for a in axes:
+        v = r[a]
+        out.append(None if v is None else v[0] if len(v) == 1 else v)
+    return tuple(out)
+
+
+def mesh_sizes(mesh) -> dict:
+    return dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+
+
+def _names(entry) -> tuple:
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _divisible(shape, spec: tuple, mesh) -> tuple:
+    """Drop sharding on dims the mesh does not divide evenly (smoke
+    configs, odd head counts), as the reference does: ``DTensor`` would
+    shard them unevenly, and the shard bytes would no longer match."""
+    sizes = mesh_sizes(mesh)
+    out = []
+    for dim, entry in zip(shape, tuple(spec) + (None,) * (len(shape)
+                                                         - len(spec))):
+        if entry is None:
+            out.append(None)
+            continue
+        total = math.prod(sizes.get(n, 1) for n in _names(entry))
+        out.append(entry if total > 0 and dim % total == 0 else None)
+    return tuple(out)
+
+
+def pspec_tree(schema: Any, mesh_axes: tuple) -> Any:
+    return tree_map(lambda d: resolve(d.axes, mesh_axes), schema)
+
+
+def batch_pspec(mesh_axes: tuple) -> Any:
+    """Spec entry for a global-batch dimension."""
+    r = _rules(tuple(mesh_axes))["dp"]
+    return r if len(r) > 1 else r[0]
+
+
+def placements(spec: tuple, mesh) -> tuple:
+    """A spec as one ``Shard(d)`` or ``Replicate()`` a mesh dim.  A dim
+    split over several mesh axes lists them major to minor, in the mesh's
+    own order, which is the order ``DTensor`` shards a tensor dim split
+    over several mesh dims."""
+    from torch.distributed.tensor import Replicate, Shard
+    axes = tuple(mesh.mesh_dim_names)
+    out = [Replicate() for _ in axes]
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        names = _names(entry)
+        pos = [axes.index(n) for n in names]
+        if pos != sorted(pos):
+            raise ValueError(f"spec entry {entry!r} lists mesh axes out of "
+                             f"the mesh's order {axes}")
+        for i in pos:
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+def local_shape(shape, placements: tuple, mesh) -> tuple:
+    """The per-rank shard shape of a tensor of ``shape`` under
+    ``placements`` (which ``_divisible`` has made even)."""
+    out = list(shape)
+    for n, p in zip(tuple(mesh.shape), placements):
+        if p.is_shard():
+            out[p.dim] //= n
+    return tuple(out)
+
+
+def sharding_tree(schema: Any, mesh) -> Any:
+    """One placement tuple a leaf, after ``_divisible``."""
+    return tree_map(lambda d: placements(
+        _divisible(d.shape, resolve(d.axes, mesh.mesh_dim_names), mesh),
+        mesh), schema)
+
+
+def abstract_params(schema: Any, dtype=torch.bfloat16) -> Any:
+    """``meta`` tensors of each leaf's shape and dtype: no memory."""
+    if isinstance(dtype, str):
+        dtype = DTYPES[dtype]
+    return tree_map(lambda d: torch.empty(
+        tuple(int(s) for s in d.shape),
+        dtype=DTYPES[d.dtype] if d.dtype else dtype, device="meta"), schema)

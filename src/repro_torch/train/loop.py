@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
+from repro_torch.models.common import unshard_dim
 from repro_torch.optim.adam import AdamW
 from repro_torch.optim.schedule import accumulate_grads
 from repro_torch.sharding.policy import DTYPES, init_params
@@ -36,7 +37,10 @@ from repro_torch.sharding.policy import DTYPES, init_params
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean CE; logits (..., V) any dtype, stable fp32 reduction."""
-    logits = logits.to(torch.float32)
+    # under a mesh (the dry run) the vocab dim is gathered whole and any
+    # partial sums reduced first: DTensor's rule for a gather along a
+    # sharded or partial dim fails
+    logits = unshard_dim(logits, -1, reduce_partial=True).to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return torch.mean(lse - gold)

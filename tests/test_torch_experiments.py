@@ -152,11 +152,17 @@ def _no_build(*a, **kw):
 
 
 def test_validate_refuses_devices_naming_the_multi_device_item(monkeypatch):
+    """Both packages validate ``devices`` alike; a lane mesh wider than
+    the world (one process, no process group) then raises before any
+    scenario is built, naming the launcher that gives the ranks."""
+    import torch.distributed as dist
     got_spec, want_spec = _both(_spec(devices={"lane": 2}))
     jsweeps._validate(want_spec)           # the reference takes a mesh
+    tsweeps._validate(got_spec)            # and so does the port
     monkeypatch.setattr(tsweeps, "build_scenario", _no_build)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         tsweeps.sweep(got_spec, device="cpu")
+    assert not dist.is_initialized()
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,8 @@ import chip_smoke
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
                                                      "repro")]
 assert not bad, bad
+import torch.distributed
+assert not torch.distributed.is_initialized()   # no import starts a world
 print(" ".join(mods))
 print("imported", len(mods))
 '''
@@ -75,7 +77,9 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
                 "configs.xlstm_350m", "models.xlstm", "analysis",
                 "analysis.guards", "analysis.lint", "analysis.rules",
                 "analysis.rules.r001_host_calls",
-                "analysis.rules.r007_dtype_hygiene", "launch.lint"):
+                "analysis.rules.r007_dtype_hygiene", "launch.lint",
+                "launch.mesh", "launch.op_analysis", "launch.dryrun",
+                "data.scale"):
         assert f"repro_torch.{mod}" in r.stdout.split(), mod
 
 
@@ -102,6 +106,7 @@ def test_entry_points_default_to_cuda():
     from repro_torch import convert
     from repro_torch.core import (autoencoder, classifier, multiparty,
                                   pipeline, privacy, splitnn, vfedtrans)
+    from repro_torch.data import scale
     from repro_torch.experiments import sweeps
     from repro_torch.robustness import attacks, defense, faults
     from repro_torch.serve import quant, runtime, vfl
@@ -119,7 +124,8 @@ def test_entry_points_default_to_cuda():
                multiparty.run_apcvfl_k, multiparty.run_apcvfl_k_replicated,
                pipeline.train_encoder_with_probe, privacy.run_inversion,
                sweeps.sweep, defense.run_apcvfl_dp, attacks.build_surfaces,
-               faults.run_faulted_apcvfl):
+               faults.run_faulted_apcvfl, scale.make_scale_party,
+               scale.make_scale_lanes):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     from repro_torch.launch import experiment, serve, serve_vfl, train
     from repro_torch.serve import engine

@@ -212,7 +212,9 @@ def test_replicated_entry_points_refuse(request, name, bad):
         with pytest.raises(ValueError, match="2 scenarios for 1 seeds"):
             fn(many, seeds=[0], device="cpu")
     elif bad == "mesh":
-        with pytest.raises(NotImplementedError, match="item 10"):
+        # a mesh without the lane axis: the reference's error, before
+        # any training
+        with pytest.raises(ValueError, match="lack the 'lane' axis"):
             fn(scs, seeds=SEEDS, mesh=object(), device="cpu")
     else:
         # the aligned-only runner takes no exchange, as the reference's;

@@ -290,7 +290,12 @@ def test_recon_loss_makers_match_reference():
 
 
 def test_train_lanes_refuses_a_mesh():
+    """A mesh without the ``lane`` axis raises the reference's error
+    (``repro/core/training.py`` ``_shard_lanes``) before any training."""
     p, d, s = _lane(40, 3, 0, [3, 4, 2])
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ttraining.train_lanes([ttraining.LaneSpec(_t(p), d, s)],
-                              tae.masked_recon_loss, mesh=object())
+    for bad in (object(), type("M", (), {"mesh_dim_names": ("data",
+                                                            "model"),
+                                         "shape": (1, 1)})()):
+        with pytest.raises(ValueError, match="lack the 'lane' axis"):
+            ttraining.train_lanes([ttraining.LaneSpec(_t(p), d, s)],
+                                  tae.masked_recon_loss, mesh=bad)

@@ -234,6 +234,66 @@ def test_train_step_refuses_a_family_the_port_lacks():
         tloop.make_train_step(cfg)
 
 
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "qwen3-moe-30b-a3b",
+                                  "hubert-xlarge", "zamba2-2.7b",
+                                  "llama-3.2-vision-11b", "xlstm-350m"])
+def test_remat_recomputes_every_block_with_the_same_gradients(arch,
+                                                              monkeypatch):
+    """``cfg.remat`` checkpoints each block of every family, as the
+    reference's ``jax.checkpoint`` does (the self and cross blocks, the
+    mamba layers and the shared block), and leaves the loss and the
+    gradients as they were."""
+    import repro_torch.models.common as tcommon
+    calls = []
+    real = tcommon.checkpoint
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+    monkeypatch.setattr(tcommon, "checkpoint", counted)
+    cfg = get_smoke(arch).with_(dtype="float32")
+    params, _ = tloop.make_train_step(cfg, tadam.AdamW()).init(
+        torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(0)
+    if cfg.family == "audio":
+        batch = {"frames": torch.from_numpy(
+                     rng.randn(B, S, cfg.d_model).astype(np.float32)),
+                 "labels": torch.from_numpy(
+                     rng.randint(0, cfg.vocab_size, (B, S)).astype(np.int32))}
+    else:
+        batch = {"tokens": torch.from_numpy(_batches(cfg, "lm", n=1)[0]
+                                            ["tokens"])}
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.from_numpy(rng.randn(
+            B, cfg.n_image_tokens, cfg.d_model).astype(np.float32))
+
+    def loss_and_grads(c):
+        ps = [t.detach().requires_grad_() for t in leaves(params)]
+        tree = tree_unflatten_sorted(params, ps)
+        loss = tloop.task_loss(tree, c, batch)[0]
+        return loss, torch.autograd.grad(loss, ps)
+    loss0, g0 = loss_and_grads(cfg)
+    assert not calls
+    loss1, g1 = loss_and_grads(cfg.with_(remat=True))
+    n_blocks = cfg.n_layers + (cfg.n_layers // cfg.attn_period
+                               if cfg.family == "hybrid" else 0)
+    assert len(calls) == n_blocks
+    assert torch.equal(loss1, loss0)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g0))
+
+
+def tree_unflatten_sorted(tree, flat: list):
+    """A tree shaped like ``tree`` holding ``flat`` in ``leaves``' order."""
+    it = iter(flat)
+
+    def build(t):
+        if not isinstance(t, dict):
+            return next(it)
+        made = {k: build(t[k]) for k in sorted(t)}
+        return {k: made[k] for k in t}
+    return build(tree)
+
+
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "zamba2-2.7b"])
 def test_grad_route_calls_no_forward_only_kernel(arch, monkeypatch):
     """Under autograd the models take the reference's training route,
