@@ -44,8 +44,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    64, non-causal) and causal at the VLM's GQA 4; decode also at GQA 4 and
    over the VLM's image cache (W 1600, every slot valid).
    The lane-MLP pair also at phase 17's shapes: 16 lanes of 8,192 rows,
-   16 -> 32 -> 64 and 64 -> 32 -> 16, the forward with and without
-   ``save`` within 1e-4, the backward within 1e-5 relative.
+   16 -> 32 -> 64 and 64 -> 32 -> 16, which take the kernels' narrow
+   route, the forward with and without ``save`` (and without it at the
+   validation pass's 100,000 rows) within 1e-4, the backward within 1e-5
+   relative.
    Then the SSD intra-chunk wrapper within 2e-4 (the reference's bound) at
    zamba2's width (B 2, S 512, H 80, N = P = 64, Lc 256), a ragged grouped
    chunk (S 100, H 6, G 2) and per-step log-decays down to -16, and its
@@ -261,14 +263,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    make_lane_mesh(lane=1))`` (a world of one) on the kernel loss at batch
    8,192, 2 epochs with patience 2, cold, warm and once under the
    profiler: generation seconds, cold and warm fit seconds, steps/s,
-   rows/s, the card's busy share, the lane-MLP kernels' time a launch,
-   peak memory and the final mean train loss; the data on ``cuda:0``, a
-   seed's parties correlated through their shared latents (another
-   seed's not), the loss falling from epoch 1 to 2, both lane-MLP
-   kernels launched; (b) a cut (2 parties x 1 seed x 65,540 rows,
-   generated on the CPU, moved to the card; one epoch): the card's fit
-   held to the CPU's at phase 4's bounds (epochs and steps equal, every
-   epoch's loss within TOL_LOSS); (c) two ranks spawned on the one card
+   rows/s, the card's busy share, the lane-MLP pair's device time and
+   each kernel's time a launch, peak memory and the final mean train
+   loss; the data on ``cuda:0``, a seed's parties correlated through
+   their shared latents (another seed's not), the loss falling from epoch
+   1 to 2, both lane-MLP kernels launched; (b) a cut (2 parties x 1 seed
+   x 65,540 rows, generated on the CPU, moved to the card; one epoch):
+   the card's fit held to the CPU's at phase 4's bounds (epochs and
+   steps equal, every epoch's loss within TOL_LOSS); (c) two ranks
+   spawned on the one card
    over gloo (``launch.mesh.run_ranks``): the cut at ``lane=2`` and at
    ``lane=1, data=2`` with ``shard_rows`` (each rank keeping 32,770 of a
    lane's rows), each rank's results held to (b)'s one-process card run
@@ -928,6 +931,8 @@ def check_scale_lane_mlp(gen, err: dict) -> None:
         "val_frac"].default
     n_val = max(int(SCALE["rows"] * val_frac), 1)
     for name, (din, h, dz) in SCALE_LANE_MLPS.items():
+        _require(lane_mlp.route(din, h, dz) == "narrow",
+                 (name, lane_mlp.route(din, h, dz)))
         stacks = {}
         for rows, saves in ((B, (False, True)), (n_val, (False,))):
             stacks[rows] = stack = [torch.stack(t) for t in zip(*[
@@ -1639,11 +1644,21 @@ def _library_mlp_bwd_lanes(g, x, a1, a2, w0, w1):
             torch.bmm(x.transpose(1, 2), g1), g1.sum(1), dw1, g.sum(1))
 
 
+def _bwd_bytes(B, din, h, dz, final_act=False) -> float:
+    """Bytes a lane of the lane-MLP backward must move: g, x, a1 and the
+    weights in (a2 only with ``final_act``, which the timed calls and
+    training leave off), dx and the weight gradients out."""
+    return 4.0 * (B * ((2 if final_act else 1) * dz + din + h) + din * h
+                  + h * dz                                           # in
+                  + B * din + din * h + h + h * dz + dz)             # out
+
+
 def _scale_kernel_sets(gen) -> dict:
     """Timing sets of the lane-MLP pair at phase 17's shapes: 16 lanes of
     8,192 rows through the scale encoder and its decoder, the forward as
     training launches it (``save``), the backward; the library calls are
-    ``baddbmm``, ``F.selu``, ``baddbmm`` and the ``bmm`` backward."""
+    ``baddbmm``, ``F.selu``, ``baddbmm`` and the ``bmm`` backward.  These
+    shapes take the kernels' narrow route."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import lane_mlp, ref
@@ -1666,8 +1681,7 @@ def _scale_kernel_sets(gen) -> dict:
         bwd.append(dict(
             shape=f"{name} {din}->{h}->{dz} L={L} B={B}", iters=10,
             flops=4.0 * L * B * (din * h + h * dz),
-            bytes=4.0 * L * (B * (2 * dz + din + h) + din * h + h * dz
-                             + B * din + din * h + h + h * dz + dz),
+            bytes=L * _bwd_bytes(B, din, h, dz),
             kernel=lambda a=a: lane_mlp.launch_bwd(*a),
             plain=lambda a=a: ref.mlp2_bwd_ref(*a),
             library=lambda a=a: _library_mlp_bwd_lanes(*a)))
@@ -1685,11 +1699,10 @@ def _training_kernel_sets(gen) -> dict:
     for name, (din, h, dz) in AE_SHAPES.items():
         a = _bwd_inputs(gen, B, din, h, dz)
         flops = 4.0 * B * (din * h + h * dz)
-        nbytes = 4.0 * (B * (2 * dz + din + h) + din * h + h * dz      # in
-                        + B * din + din * h + h + h * dz + dz)         # out
         sets["lane_mlp_bwd"].append(dict(
             shape=f"{name} {din}->{h}->{dz} B={B}", flops=flops,
-            bytes=nbytes, kernel=lambda a=a: lane_mlp.launch_bwd(*a),
+            bytes=_bwd_bytes(B, din, h, dz),
+            kernel=lambda a=a: lane_mlp.launch_bwd(*a),
             plain=lambda a=a: ref.mlp2_bwd_ref(*a),
             library=lambda a=tuple(t[0] for t in a): _library_mlp_bwd(*a)))
     sets.update(_distill_sets(gen, B))
@@ -4659,7 +4672,9 @@ def _scale_rank(lanes: list, kw: dict) -> dict:
     return out
 
 
-SCALE_KERNELS = ("lane_mlp_fwd_kernel", "lane_mlp_bwd_kernel", "other")
+# the profile's kinds: a kernel whose name holds one of the first two (each
+# route's kernels, the backward's fold among them), or the rest
+SCALE_KERNELS = ("lane_mlp_fwd", "lane_mlp_bwd", "other")
 
 
 def _scale_profile(fn) -> dict:
@@ -4672,6 +4687,8 @@ def _scale_profile(fn) -> dict:
                            "us_per_launch": 1e3 * prof["device_ms"][k]
                            / max(n, 1)}
                        for k, n in prof["device_launches"].items()}
+    prof["pair_device_ms"] = sum(prof["device_ms"][k]
+                                 for k in SCALE_KERNELS[:-1])
     return prof
 
 
@@ -4917,6 +4934,10 @@ def main(argv=None) -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
         if name == "lane_mlp_bwd":          # its check's bound is relative
             kernels[-1]["max_rel_err"] = errs["lane_mlp_bwd_rel"]
+        if name.startswith("lane_mlp"):     # the narrow route, phase 17's
+            sc = timing[f"{name}_scale"]    # shapes
+            kernels[-1]["scale"] = {k: sc[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
         if "attention" in name:             # fp32 above, bf16 here; bf16
             kernels[-1]["max_abs_err_bf16"] = errs[f"{name}/bfloat16"]
             kernels[-1]["bf16_bound_ratio"] = errs[   # vs fp32 plain, <= 1
@@ -5038,6 +5059,8 @@ def main(argv=None) -> int:
                                 "steps_per_s", "rows_per_s", "peak_bytes",
                                 "final_mean_train_loss")}
             | {"busy_share": sf["profile"]["device_busy_share"],
+               "device_ms": sum(sf["profile"]["device_ms"].values()),
+               "lane_mlp_pair_device_ms": sf["profile"]["pair_device_ms"],
                "lane_mlp_us_per_launch": {
                    k: v["us_per_launch"]
                    for k, v in sf["profile"]["kernels"].items()},

@@ -12,9 +12,16 @@
 // Replaces: repro/kernels/lane_mlp.py::_fwd_kernel (pallas_call in
 // _fwd_call), reached through fused_mlp2 / fused_lane_mlp2 and
 // core/autoencoder.fused_encode -- every Table-3 encoder on the serving path
-// (g1_active 5->64->128, g3 5->256->256, g2 384->256->256) and every
-// autoencoder forward in training.
+// (g1_active 5->64->128, g3 5->256->256, g2 384->256->256), every
+// autoencoder forward in training, and the million-row scale lanes
+// (16 -> 32 -> 64 and back, 16 lanes of 8,192 rows, and 100,000 rows a
+// validation pass).
 //
+// Two routes, picked by the launcher from the widths alone, with the same
+// bits (each output one fmaf chain over k ascending from 0, the bias added
+// last; see the notes at each route).
+//
+// The cluster route (every shape the narrow route does not take).
 // What bounds it on the H100: counted as work, 2*B*(din*h + h*dz) fp32
 // operations against the 67 TFLOP/s of the CUDA cores, and, a factor 3-4
 // lower at every Table-3 shape, the bytes of x, the weights and out against
@@ -51,8 +58,33 @@
 // What holds it back (PERF.md, tools/kernel_variants.py): a block has
 // four warps, one per scheduler, so each k-step's shared-memory reads and
 // FMAs wait on one another, and the chain of k-steps is the block's time.
-// The lane axis is grid axis 1.  No fast-math: SELU uses expm1f, the form
-// and constants of jax.nn.selu.
+// At narrow widths over long batches it is worse still: KS = 64 runs 64
+// k-steps on zeros at din 16, a 32-column pass leaves half the threads idle
+// at dz 16, and every 16-row tile stages its weights again.
+//
+// The narrow route (every width a multiple of 4, at most NARROW_MAX = 64).
+// What bounds it: the bytes of x, a1, a2 and out, 4*L*B*(din + h + 2 dz)
+// with save, against 3.35 TB/s (27.6 us at the scale encoder, 20.1 at the
+// decoder, 16 lanes of 8,192 rows); its operations are 2.8x lower.
+// Design: a block of 256 threads takes 128 rows of one lane.
+// - The lane's weights and biases (2,656 floats at the scale encoder) and
+//   the block's rows of x go to shared memory once, every 16-byte cp.async
+//   in flight at once and one wait; rows past B are zero-filled.
+// - Each layer's k loop runs to exactly din and h.  A thread owns units of
+//   R rows x 4 columns (R <= 4, as many as fill the block once; 8 took 105
+//   registers and two blocks an SM), the R rows 128 / R apart: per 4 k, R +
+//   4 16-byte shared reads feed 16 R FMAs, and a warp's stores of one of
+//   its rows cover whole consecutive rows of a1, a2 and out, so they leave
+//   as coalesced 16-byte stores straight from registers.  selu(a1) stays
+//   in shared memory for the second layer.
+// - The same bits as the cluster route: one fmaf chain an output, k
+//   ascending from 0, the bias last.  The cluster route ran k to a multiple
+//   of 64 on zeros, which turns a chain's -0 into +0 before the bias; a
+//   "+ 0.f" does the same here where din or h is not a multiple of 64.
+// 56 registers, no spills; 39 KB of shared memory at the scale encoder, 64
+// KB at the decoder.
+// The lane axis is grid axis 1 on both routes.  No fast-math: SELU uses
+// expm1f, the form and constants of jax.nn.selu.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -299,6 +331,163 @@ lane_mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w0,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The narrow route: every width a multiple of 4 and at most NARROW_MAX.
+// ---------------------------------------------------------------------------
+
+constexpr int NARROW_MAX = 64;
+constexpr bool narrow_width(int w) {
+  return w > 0 && w <= NARROW_MAX && w % 4 == 0;
+}
+constexpr int NROWS = 128;              // rows a block
+constexpr int NTHREADS = 256;
+
+// The smallest row stride >= k that is 4 mod 8 floats: 16-byte aligned,
+// and eight rows read at one column land on eight distinct 4-bank groups.
+__host__ __device__ constexpr int pad_ld(int k) { return (k + 3) / 8 * 8 + 4; }
+
+// Rows [0, n) x quads [0, q) of dst (row stride ld), asynchronously: row
+// r < valid from src (row stride 4 q), the rest zero-filled.
+__device__ __forceinline__ void stage_async(float* dst, int ld,
+                                            const float* src, int n,
+                                            int valid, int q) {
+  for (int e = threadIdx.x; e < n * q; e += NTHREADS) {
+    const int r = e / q, k = e - r * q;
+    cp_async16(dst + r * ld + 4 * k,
+               r < valid ? src + (size_t)r * 4 * q + 4 * k : src,
+               r < valid ? 16 : 0);
+  }
+}
+
+// One layer over the block's NROWS rows: v[r][c] = (sum over k ascending
+// from 0 of A[r][k] * W[k][c], plus 0 where zero_k) + bias[c], handed to
+// epi(r, c, v[r][c..c+3]).  A (NROWS x K, row stride lda) and W (K x n,
+// row-major) in shared memory; a unit is R rows (R apart, so that a warp's
+// stores of one of them cover whole consecutive rows) x 4 columns.
+template <int R, typename Epi>
+__device__ __forceinline__ void narrow_layer(const float* __restrict__ A,
+                                             int lda,
+                                             const float* __restrict__ W,
+                                             const float* __restrict__ bias,
+                                             int K, int n, bool zero_k,
+                                             Epi epi) {
+  const int ng = n / 4;
+  for (int u = threadIdx.x; u < NROWS / R * ng; u += NTHREADS) {
+    const int cg = u % ng, rg = u / ng;
+    float acc[R][4] = {};
+    for (int k = 0; k < K; k += 4) {
+      float4 a[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        a[i] = *reinterpret_cast<const float4*>(
+            A + (rg + i * (NROWS / R)) * lda + k);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 w =
+            *reinterpret_cast<const float4*>(W + (k + kk) * n + cg * 4);
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          const float av = kk == 0 ? a[i].x : kk == 1 ? a[i].y
+                         : kk == 2 ? a[i].z : a[i].w;
+          acc[i][0] = fmaf(av, w.x, acc[i][0]);
+          acc[i][1] = fmaf(av, w.y, acc[i][1]);
+          acc[i][2] = fmaf(av, w.z, acc[i][2]);
+          acc[i][3] = fmaf(av, w.w, acc[i][3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[j] = (zero_k ? acc[i][j] + 0.f : acc[i][j]) + bias[cg * 4 + j];
+      epi(rg + i * (NROWS / R), cg * 4, make_float4(v[0], v[1], v[2], v[3]));
+    }
+  }
+}
+
+// Units of R rows: as many as fill the block's threads once, at most 4
+// (8 took 105 registers, two blocks an SM, and 30% more time).
+template <typename Epi>
+__device__ __forceinline__ void narrow_layer_any(const float* A, int lda,
+                                                 const float* W,
+                                                 const float* bias, int K,
+                                                 int n, bool zero_k, Epi epi) {
+  const int fill = NROWS * (n / 4) / NTHREADS;
+  if (fill >= 4) narrow_layer<4>(A, lda, W, bias, K, n, zero_k, epi);
+  else if (fill >= 2) narrow_layer<2>(A, lda, W, bias, K, n, zero_k, epi);
+  else narrow_layer<1>(A, lda, W, bias, K, n, zero_k, epi);
+}
+
+__device__ __forceinline__ float4 selu4(float4 v) {
+  return make_float4(selu(v.x), selu(v.y), selu(v.z), selu(v.w));
+}
+
+__global__ void __launch_bounds__(NTHREADS)
+lane_mlp_fwd_narrow_kernel(const float* __restrict__ x,
+                           const float* __restrict__ w0,
+                           const float* __restrict__ b0,
+                           const float* __restrict__ w1,
+                           const float* __restrict__ b1,
+                           float* __restrict__ out, float* __restrict__ a1_out,
+                           float* __restrict__ a2_out, int B, int din, int h,
+                           int dz, int final_act) {
+  extern __shared__ float4 smem4[];
+  const int ldx = pad_ld(din), ldh = pad_ld(h);
+  float* w0s = reinterpret_cast<float*>(smem4);   // [din][h]
+  float* b0s = w0s + din * h;                     // [h]
+  float* w1s = b0s + h;                           // [h][dz]
+  float* b1s = w1s + h * dz;                      // [dz]
+  float* xs = b1s + dz;                           // [NROWS][ldx]
+  float* hs = xs + NROWS * ldx;                   // [NROWS][ldh]: selu(a1)
+
+  const int lane = blockIdx.y, t = threadIdx.x;
+  const int row0 = blockIdx.x * NROWS;
+  const int rows = min(NROWS, B - row0);
+  x += ((size_t)lane * B + row0) * din;
+  w0 += (size_t)lane * din * h;
+  b0 += (size_t)lane * h;
+  w1 += (size_t)lane * h * dz;
+  b1 += (size_t)lane * dz;
+  out += ((size_t)lane * B + row0) * dz;
+  if (a1_out) a1_out += ((size_t)lane * B + row0) * h;
+  if (a2_out) a2_out += ((size_t)lane * B + row0) * dz;
+
+  // the lane's weights and biases once, and the block's rows of x (zeros
+  // past B): every 16-byte copy in flight at once
+  stage_async(w0s, h, w0, din, din, h / 4);
+  stage_async(w1s, dz, w1, h, h, dz / 4);
+  stage_async(b0s, h, b0, 1, 1, h / 4);
+  stage_async(b1s, dz, b1, 1, 1, dz / 4);
+  stage_async(xs, ldx, x, NROWS, rows, din / 4);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  // the parent kernel ran k to a multiple of 64 on zeros, which turns a
+  // sum of -0 into +0: so does "+ 0.f" here
+  narrow_layer_any(xs, ldx, w0s, b0s, din, h, din % 64 != 0,
+                   [&](int r, int c, float4 v) {
+                     if (a1_out && r < rows)
+                       *reinterpret_cast<float4*>(a1_out + (size_t)r * h + c) = v;
+                     *reinterpret_cast<float4*>(hs + r * ldh + c) = selu4(v);
+                   });
+  __syncthreads();
+  narrow_layer_any(hs, ldh, w1s, b1s, h, dz, h % 64 != 0,
+                   [&](int r, int c, float4 v) {
+                     if (r >= rows) return;
+                     if (a2_out)
+                       *reinterpret_cast<float4*>(a2_out + (size_t)r * dz + c) = v;
+                     *reinterpret_cast<float4*>(out + (size_t)r * dz + c) =
+                         final_act ? selu4(v) : v;
+                   });
+}
+
+size_t narrow_smem(int din, int h, int dz) {
+  return ((size_t)din * h + h + (size_t)h * dz + dz +
+          (size_t)NROWS * (pad_ld(din) + pad_ld(h))) * sizeof(float);
+}
+
 }  // namespace
 
 extern "C" int lane_mlp_fwd_max_hidden() { return MAX_HIDDEN; }
@@ -347,4 +536,27 @@ extern "C" int lane_mlp_fwd(const float* x, const float* w0, const float* b0,
 
 extern "C" const char* lane_mlp_fwd_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
+}
+
+// The narrow route: one block of NTHREADS threads a lane and NROWS rows,
+// every width a multiple of 4 in [4, NARROW_MAX].  Launches on `stream`;
+// returns the launch's error code (0 = launched).
+extern "C" int lane_mlp_fwd_narrow(const float* x, const float* w0,
+                                   const float* b0, const float* w1,
+                                   const float* b1, float* out, float* a1,
+                                   float* a2, int L, int B, int din, int h,
+                                   int dz, int final_act, void* stream) {
+  if (L <= 0 || B <= 0) return 0;
+  if (!narrow_width(din) || !narrow_width(h) || !narrow_width(dz))
+    return (int)cudaErrorInvalidValue;
+  if (L > 65535) return (int)cudaErrorInvalidValue;
+  static const cudaError_t smem_attr = cudaFuncSetAttribute(
+      lane_mlp_fwd_narrow_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      232448);
+  if (smem_attr != cudaSuccess) return (int)smem_attr;
+  const dim3 grid((unsigned)((B + NROWS - 1) / NROWS), L);
+  lane_mlp_fwd_narrow_kernel<<<grid, NTHREADS, narrow_smem(din, h, dz),
+                               (cudaStream_t)stream>>>(
+      x, w0, b0, w1, b1, out, a1, a2, B, din, h, dz, final_act);
+  return (int)cudaGetLastError();
 }

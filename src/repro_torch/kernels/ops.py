@@ -6,7 +6,8 @@ tensor launches the hand-written kernel or raises — there is no fallback.
 kernel is launched and nowhere else, so a run can show that its path went
 through the kernels (``reset_launches`` zeroes it).  ``lane_mlp_bwd``
 counts one per backward, which is a pair of launches (g1 and dW1, then dW0
-and dx).
+and dx; on the narrow route the rows pass, then the fold of its tile
+partials).
 
 The attention wrappers take the model's layouts and grouped-query heads
 as they are (k/v with K kv heads, K dividing H): the kernels map q head

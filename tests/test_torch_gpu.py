@@ -307,8 +307,15 @@ def test_int8_matmul_heads_repeat_bit_for_bit_on_card(c):
 
 # the kernels as they stood before their redesign, built from git into the
 # ignored build directory: the redesigns of the backward, int8, the SSD and
-# Eq. 5 kept every sum order, so their bits must not move
+# Eq. 5 kept every sum order, so their bits must not move.  A key
+# "<source>@<commit>" names that commit's copy of csrc/<source>.cu
 BEFORE_REDESIGN = {"lane_mlp_bwd": "ba1cb40fc083caff77ebf5316ec6d49afb092394",
+                   # the lane-MLP pair before its narrow route: the
+                   # cluster routes alone, at every width
+                   "lane_mlp_fwd@7336668":
+                       "7336668ca05da8e36954167a3ff839f2c2c38827",
+                   "lane_mlp_bwd@7336668":
+                       "7336668ca05da8e36954167a3ff839f2c2c38827",
                    "int8_matmul": "ba1cb40fc083caff77ebf5316ec6d49afb092394",
                    "ssd_chunk": "64a7bb6392a75af0ec712db0c0376ad1fab10090",
                    "probe": "64a7bb6392a75af0ec712db0c0376ad1fab10090",
@@ -331,7 +338,7 @@ def _library_before(name):
         src = subprocess.run(
             ["git", "-C", os.path.dirname(_build.CSRC), "show",
              f"{BEFORE_REDESIGN[name]}:src/repro_torch/kernels/csrc/"
-             f"{name}.cu"],
+             f"{name.split('@')[0]}.cu"],
             capture_output=True, text=True)
         if src.returncode:
             pytest.skip(f"needs git history (or {cu}) for the kernel "
@@ -380,6 +387,125 @@ def test_lane_mlp_bwd_equals_kernel_before_redesign_on_card(name):
         torch.cuda.synchronize()
         for a, b in zip(got, want):
             assert torch.equal(a, b), (name, B, fa)
+
+
+# the million-row scale lanes' MLPs, (din, h, dz): the narrow route
+SCALE_SHAPES = {"scale.enc": (16, 32, 64), "scale.dec": (64, 32, 16)}
+SCALE_LANES, SCALE_BATCH, SCALE_VAL_ROWS = 16, 8192, 100_000
+
+
+def _before_narrow():
+    """The pair's libraries before the narrow route, their C interfaces
+    declared."""
+    import ctypes
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fwd = _library_before("lane_mlp_fwd@7336668")
+    bwd = _library_before("lane_mlp_bwd@7336668")
+    fwd.lane_mlp_fwd.argtypes = [P] * 8 + [I] * 7 + [P]
+    bwd.lane_mlp_bwd.argtypes = [P] * 12 + [I] * 6 + [P]
+    return fwd, bwd
+
+
+def _fwd_before_narrow(lib, xs, w0s, b0s, w1s, b1s, final_act, save):
+    """The forward through the old library, at the cluster size its
+    launcher picked."""
+    from repro_torch.kernels import _launch
+    L, B, din = xs.shape
+    h, dz = w0s.shape[-1], w1s.shape[-1]
+    new = lambda *shape: torch.empty(shape, device=xs.device)
+    out = new(L, B, dz)
+    a1, a2 = (new(L, B, h), new(L, B, dz)) if save else (None, None)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    cluster = _launch.cluster_size(L * -(-B // 16), xs.device,
+                                   lane_mlp.BLOCKS_PER_SM)
+    rc = lib.lane_mlp_fwd(*(t.data_ptr() for t in (xs, w0s, b0s, w1s, b1s,
+                                                   out)),
+                          ptr(a1), ptr(a2), L, B, din, h, dz,
+                          int(final_act), cluster,
+                          torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    return (out, a1, a2) if save else (out,)
+
+
+def _bwd_before_narrow(lib, g, xs, a1, a2, w0s, w1s, final_act, need_dx):
+    L, B, din = xs.shape
+    h, dz = w0s.shape[-1], w1s.shape[-1]
+    new = lambda *shape: torch.empty(shape, device=xs.device)
+    dx = new(L, B, din) if need_dx else None
+    grads = [new(L, din, h), new(L, h), new(L, h, dz), new(L, dz)]
+    rc = lib.lane_mlp_bwd(
+        *(t.data_ptr() for t in (g, xs, a1, a2, w0s, w1s)),
+        None if dx is None else dx.data_ptr(),
+        *(t.data_ptr() for t in grads), new(L, B, h).data_ptr(),
+        L, B, din, h, dz, int(final_act),
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    return (dx, *grads)
+
+
+def _same(got, want) -> bool:
+    torch.cuda.synchronize()
+    return all((a is None and b is None) or torch.equal(a, b)
+               for a, b in zip(got, want))
+
+
+def _fwd_cases(name):
+    """(L, B, save) of the forward test: the Table-3 MLPs at the batches
+    the card tests already take, the scale MLPs at their batch, a ragged
+    one and the validation pass's rows."""
+    if name in SCALE_SHAPES:
+        return [(SCALE_LANES, SCALE_BATCH, False),
+                (SCALE_LANES, SCALE_BATCH, True), (SCALE_LANES, 300, True),
+                (SCALE_LANES, SCALE_VAL_ROWS, False)]
+    return [(L, B, save) for L in (1, 2) for B in (1, 7, 77, 128, 2000)
+            for save in (False, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(AE_SHAPES) + list(SCALE_SHAPES))
+def test_lane_mlp_fwd_equals_kernel_before_narrow_route_on_card(name):
+    """The forward keeps the parent's bits at every shape: the Table-3
+    MLPs on the unchanged cluster route, the scale MLPs on the narrow
+    route."""
+    dev = _card()
+    fwd, _ = _before_narrow()
+    widths = {**AE_SHAPES, **SCALE_SHAPES}[name]
+    for L, B, save in _fwd_cases(name):
+        arrs = _mlp(B, B, *widths, dev, lanes=(L,))
+        for fa in (False, True):
+            got = lane_mlp.launch(*arrs, final_act=fa, save=save)
+            got = got if save else (got,)
+            want = _fwd_before_narrow(fwd, *arrs, fa, save)
+            assert _same(got, want), (name, L, B, fa, save)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(AE_SHAPES) + list(SCALE_SHAPES))
+def test_lane_mlp_bwd_equals_kernel_before_narrow_route_on_card(name):
+    """The backward keeps the parent's bits at every shape, with and
+    without dx and the final SELU; at the scale MLPs (the narrow route)
+    over 16 lanes of the batch and of a ragged 300 rows, lane 1 dead."""
+    dev = _card()
+    _, bwd = _before_narrow()
+    if name in SCALE_SHAPES:
+        cases = [(SCALE_LANES, SCALE_BATCH, fa) for fa in (False, True)]
+        cases.append((SCALE_LANES, 300, True))
+    else:
+        cases = [(1, 1, True), (1, 77, False), (1, 128, False),
+                 (2, 128, True), (1, 2000, False)]
+    widths = {**AE_SHAPES, **SCALE_SHAPES}[name]
+    for L, B, fa in cases:
+        g, *rest = _bwd_case(B, L, B, *widths, dev, fa)
+        if L > 1:
+            g[1] = 0.0
+        for need_dx in (True, False):
+            got = lane_mlp.launch_bwd(g, *rest, final_act=fa,
+                                      need_dx=need_dx)
+            want = _bwd_before_narrow(bwd, g, *rest, fa, need_dx)
+            assert _same(got, want), (name, L, B, fa, need_dx)
+            if L > 1:
+                assert all(not bool(a[1].any()) for a in got
+                           if a is not None), (name, B)
 
 
 @pytest.mark.gpu

@@ -39,6 +39,10 @@ AE_SHAPES = {
     "g2.enc": (384, 256, 256), "g2.dec": (256, 256, 384),
     "g3.enc": (5, 256, 256), "g3.dec": (256, 256, 5)}
 NARROW = {k: tuple(max(w // 4, 5) for w in v) for k, v in AE_SHAPES.items()}
+# the million-row scale lanes' encoder and decoder at their own widths,
+# which the card's narrow route takes
+SCALE_SHAPES = {"scale.enc": (16, 32, 64), "scale.dec": (64, 32, 16)}
+NARROW.update(SCALE_SHAPES)
 
 
 def _relerr(a, b) -> float:
@@ -68,9 +72,12 @@ def _torch_grads(arrs, final_act, lanes=False, live=None):
 
 
 @pytest.mark.parametrize("B,final_act", [(1, False), (77, False),
-                                         (77, True)])
+                                         (77, True), (300, False),
+                                         (300, True)])
 @pytest.mark.parametrize("name", list(NARROW))
 def test_mlp2_bwd_matches_jax_vjp(name, B, final_act):
+    """One row, a ragged tile, and 300 rows: three of the reference's
+    128-row tiles and ten of the card's 32-row tile partials."""
     arrs = _mlp_arrays(list(NARROW).index(name) * 100 + B, B, *NARROW[name])
     x, w0, b0, w1, b1, g = arrs
     out, vjp = jax.vjp(lambda *a: jax_fused_mlp2(
@@ -94,9 +101,15 @@ def test_mlp2_bwd_matches_jax_vjp(name, B, final_act):
         assert _relerr(a, c.grad.numpy()) <= REL, name
 
 
-def test_lane_mlp2_with_dead_lane_matches_jax():
-    arrs = _mlp_arrays(7, 40, 12, 16, 9, lanes=(3,))
-    live = np.array([1.0, 0.0, 1.0], np.float32)
+@pytest.mark.parametrize("L,B,din,h,dz", [
+    (3, 40, 12, 16, 9),
+    # the scale lanes' 16 stacked MLPs, over several 128-row tiles
+    (16, 300, *SCALE_SHAPES["scale.enc"]),
+    (16, 300, *SCALE_SHAPES["scale.dec"])])
+def test_lane_mlp2_with_dead_lane_matches_jax(L, B, din, h, dz):
+    arrs = _mlp_arrays(7, B, din, h, dz, lanes=(L,))
+    live = np.ones(L, np.float32)
+    live[1] = 0.0
     got, out = _torch_grads(arrs, False, lanes=True, live=live)
     want_out, vjp = jax.vjp(
         lambda *a: jax_lane_mlp2(*a, jnp.asarray(live), interpret=True),
@@ -106,6 +119,36 @@ def test_lane_mlp2_with_dead_lane_matches_jax():
         assert _relerr(a, b) <= REL
         assert not np.any(a[1])          # the dead lane: exact zeros
     assert not np.any(out[1])
+
+
+def test_lane_mlp_routes_and_scratch():
+    """The card's route is a function of the widths: the scale lanes take
+    the narrow route, every Table-3 MLP keeps the cluster route, and the
+    narrow backward's scratch holds each lane's 32-row tile partials of
+    [dW0; db0] and [dW1; db1] (43.5 MB at the scale encoder's 16 lanes of
+    8,192 rows)."""
+    from repro_torch.kernels import lane_mlp
+    for din, h, dz in SCALE_SHAPES.values():
+        assert lane_mlp.route(din, h, dz) == "narrow"
+    for din, h, dz in AE_SHAPES.values():
+        assert lane_mlp.route(din, h, dz) == "cluster"
+    for widths in ((4, 4, 4), (64, 64, 64), (8, 12, 60)):
+        assert lane_mlp.route(*widths) == "narrow"
+    for widths in ((5, 32, 64), (16, 68, 64), (16, 32, 66), (0, 32, 64)):
+        assert lane_mlp.route(*widths) == "cluster"
+    assert lane_mlp.partial_shape(16, 8192, 16, 32, 64) == (16, 256, 2656)
+    assert lane_mlp.partial_shape(16, 8192, 64, 32, 16) == (16, 256, 2608)
+    assert lane_mlp.partial_shape(2, 300, 16, 32, 64) == (2, 10, 2656)
+    assert lane_mlp.partial_shape(1, 1, 4, 4, 4) == (1, 1, 40)
+    L, T, P = lane_mlp.partial_shape(16, 8192, 16, 32, 64)
+    assert 4 * L * T * P == 43_515_904
+    widest = lane_mlp.NARROW_MAX
+    assert lane_mlp.route(widest, widest, widest) == "narrow"
+    assert lane_mlp.route(widest + 4, 32, 64) == "cluster"
+    assert lane_mlp.route(16, 32, widest + 4) == "cluster"
+    assert lane_mlp.partial_shape(1, lane_mlp.TILE_ROWS, 16, 32, 64)[1] == 1
+    assert lane_mlp.partial_shape(1, lane_mlp.TILE_ROWS + 1, 16, 32,
+                                  64)[1] == 2
 
 
 def _distill_arrays(seed, B=50, D=7, M=24):

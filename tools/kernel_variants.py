@@ -17,9 +17,12 @@ difference to the unchanged kernel is what that part costs on the
 critical path.  Decode runs at the engine's B 8 over 1024 slots with 512
 written (internlm2-1.8b's H 16, K 8, hd 128 and zamba2's H = K = 32, hd
 80, bf16); the lane-MLP forward at g2, g3 and g1_active's Table-3 widths at
-buckets 16 and 256; the lane-MLP backward (``bwd``) at the eight Table-3
-autoencoder MLPs at the training batch of 128; the int8 matmul at the
-quantized active path's three layers at buckets 256 and 16; the SSD
+buckets 16 and 256 (its cluster route) and at the scale lanes' encoder and
+decoder (16 lanes of 8,192 rows with ``save``: its narrow route); the
+lane-MLP backward (``bwd``) at the eight Table-3 autoencoder MLPs at the
+training batch of 128 and at the scale lanes (16 lanes of 8,192 rows); an
+edit of one route leaves the other's times as they are.  The int8 matmul
+at the quantized active path's three layers at buckets 256 and 16; the SSD
 intra-chunk block at zamba2's ``prefill_step`` (B 2, S 2048, H 80, N = P =
 64, Lc 256, fp32); the probe step at phase 5's 10 fold lanes over mimic3's
 active rows (d 256, C 4); Eq. 5 (``distill``) at step 3's batch of 128
@@ -79,6 +82,18 @@ LANE = {
     "no weight reads": (
         "const float4 wv = *reinterpret_cast<const float4*>(w + kk * PC);",
         "const float4 wv = make_float4(kk, 1.f, 2.f, 3.f);"),
+    # the narrow route: the weights and rows staged and the results stored,
+    # but no FMA (each output its bias)
+    "narrow: no FMA loop": ("for (int k = 0; k < K; k += 4) {\n      float4 a[R];",
+                            "for (int k = 0; k < 0; k += 4) {\n      float4 a[R];"),
+    # units of at most 2 rows (fewer registers), or blocks of 64 or 256
+    # rows
+    "narrow: units of at most 2 rows": ("if (fill >= 4) narrow_layer<4>",
+                                        "if (false) narrow_layer<4>"),
+    "narrow: blocks of 64 rows": ("constexpr int NROWS = 128;",
+                                  "constexpr int NROWS = 64;"),
+    "narrow: blocks of 256 rows": ("constexpr int NROWS = 128;",
+                                   "constexpr int NROWS = 256;"),
 }
 BWD = {
     # the first launch (dW1/db1 and g1 tiles) left out
@@ -95,8 +110,11 @@ BWD = {
     "no weight-tile work": ("  float* As = smem;                 // [RC][WT]",
                             "  return;\n  float* As = smem;"),
     # the weight tiles stage their rows but run no FMA
-    "no row-sum FMAs": ("    for (int r = 0; r < TM; ++r) {",
-                        "    for (int r = 0; r < 0; ++r) {"),
+    "no row-sum FMAs": (
+        "    for (int r = 0; r < TM; ++r) {\n      const float4 x = "
+        "*reinterpret_cast<const float4*>(ap + r * WT);",
+        "    for (int r = 0; r < 0; ++r) {\n      const float4 x = "
+        "*reinterpret_cast<const float4*>(ap + r * WT);"),
     # the g1 and dx tiles stage their slabs but run no k step ...
     "no strided-dot steps": ("      if (k0 + s * 32 >= K) break;",
                              "      break;"),
@@ -107,6 +125,33 @@ BWD = {
         "  tree_level<4>(acc, lane);\n  tree_level<2>(acc, lane);\n"
         "  tree_level<1>(acc, lane);\n",
         "  for (int m = 1; m < 32; ++m) acc[0] += acc[m];\n"),
+    # the narrow route: its rows pass or its fold left out
+    "narrow: no rows pass": ("  if (m.kp1 == 32 && m.kp2 == 32)\n",
+                             "  if (true) {\n  } else if (m.kp1 == 32 && "
+                             "m.kp2 == 32)\n"),
+    "narrow: no fold": ("  lane_mlp_bwd_fold_kernel<<<",
+                        "  if (false) lane_mlp_bwd_fold_kernel<<<"),
+    # the rows pass staging its rows, without the strided dots (g1, dx) or
+    # without the tile partials
+    "narrow: no strided dots": ("  for (int c0 = 0; c0 < n; c0 += 32) {",
+                                "  for (int c0 = 0; c0 < 0; c0 += 32) {"),
+    "narrow: no tile partials": (
+        "for (int it = threadIdx.x; it < tiles * ga * gb; it += NTHREADS)",
+        "for (int it = threadIdx.x; it < 0; it += NTHREADS)"),
+    # the rows pass held to three blocks an SM (85 registers), or its
+    # strided dots two rows at a time
+    "narrow: three blocks an SM": (
+        "template <int S1, int S2>\n__global__ void __launch_bounds__(NTHREADS)",
+        "template <int S1, int S2>\n__global__ void __launch_bounds__(NTHREADS, 3)"),
+    "narrow: dots two rows at a time": (
+        "    for (int r = warp * rw + lane / cw; r < rows; r += NWARPS * rw) {",
+        "#pragma unroll 2\n    for (int r = warp * rw + lane / cw; r < rows; "
+        "r += NWARPS * rw) {"),
+    # blocks of two or of eight 32-row tiles
+    "narrow: blocks of 64 rows": ("constexpr int NROWS = 4 * TM;",
+                                  "constexpr int NROWS = 2 * TM;"),
+    "narrow: blocks of 256 rows": ("constexpr int NROWS = 4 * TM;",
+                                   "constexpr int NROWS = 8 * TM;"),
 }
 INT8 = {
     # the weight slab is dequantized from zeros, without reading w_q
@@ -280,9 +325,8 @@ def main(argv=None) -> int:
                        lambda so: da.bind(ctypes.CDLL(so))),
             "lane": (lm, "_lib", "lane_mlp_fwd", LANE,
                      lambda so: lm.bind(ctypes.CDLL(so))),
-            "bwd": (lm, "_lib_bwd", "lane_mlp_bwd",
-                    BWD,
-                    lambda so: _bound(lm._lib_bwd, so)),
+            "bwd": (lm, "_lib_bwd", "lane_mlp_bwd", BWD,
+                    lambda so: lm.bind_bwd(ctypes.CDLL(so))),
             "int8": (i8, "_lib", "int8_matmul",
                      INT8,
                      lambda so: _bound(i8._lib, so)),
@@ -320,6 +364,7 @@ def main(argv=None) -> int:
             cases.append(("decode", f"B={B} W={W} valid={pos + 1} H={H} "
                           f"K={K} hd={hd} bf16", lambda a=(q, kc, vc):
                           ops.decode_attention(*a, sp, pos)))
+    L, Bs = len(cs.SCALE["seeds"]) * cs.SCALE["parties"], cs.SCALE["batch"]
     if "lane" in groups:
         for name, Bm in (("g2", 16), ("g2", 256), ("g3", 256),
                          ("g1_active", 16)):
@@ -327,10 +372,20 @@ def main(argv=None) -> int:
             a = cs._mlp_inputs(gen, Bm, din, h, dz)
             cases.append(("lane", f"{name} {din}->{h}->{dz} B={Bm}",
                           lambda a=a: ops.fused_mlp2(*a)))
+        # the scale lanes (the narrow route), as training launches them
+        for name, (din, h, dz) in cs.SCALE_LANE_MLPS.items():
+            s = [torch.stack(t) for t in zip(*[
+                cs._mlp_inputs(gen, Bs, din, h, dz) for _ in range(L)])]
+            cases.append(("lane", f"{name} {din}->{h}->{dz} L={L} B={Bs} "
+                          f"save", lambda s=s: lm.launch(*s, save=True)))
     if "bwd" in groups:
         for name, (din, h, dz) in cs.AE_SHAPES.items():
             a = cs._bwd_inputs(gen, cs.TRAIN_B, din, h, dz)
             cases.append(("bwd", f"{name} {din}->{h}->{dz} B={cs.TRAIN_B}",
+                          lambda a=a: lm.launch_bwd(*a)))
+        for name, (din, h, dz) in cs.SCALE_LANE_MLPS.items():
+            a = cs._bwd_inputs(gen, Bs, din, h, dz, lanes=L)
+            cases.append(("bwd", f"{name} {din}->{h}->{dz} L={L} B={Bs}",
                           lambda a=a: lm.launch_bwd(*a)))
     if "int8" in groups:
         for Bm in (cs.BUCKET, 16):
@@ -393,7 +448,9 @@ def main(argv=None) -> int:
                 print(f"{kernel} {shape} | {name}: {row[name]:.3f} us",
                       flush=True)
             setattr(module, attr, lambda lib=variants["unchanged"]: lib)
-            for c in (CLUSTERS if kernel in ("decode", "lane") else ()):
+            sweep = kernel == "decode" or (kernel == "lane"
+                                           and "L=" not in shape)
+            for c in (CLUSTERS if sweep else ()):
                 _launch.cluster_size = lambda *_, c=c: c
                 row[f"cluster {c}"] = cs.graph_ms(fn) * 1e3
                 print(f"{kernel} {shape} | unchanged, cluster {c}: "

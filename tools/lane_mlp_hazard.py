@@ -7,9 +7,12 @@ lane-MLP kernels, at the shape of
     python3 tools/lane_mlp_hazard.py [--runs 200] [--jobs 8]
 
 Runs the test's computation in ``--runs`` fresh processes, ``--jobs`` at a
-time.  Each process (``--worker``) first does exactly what the test does,
-on the card and on CPU copies, and holds each of the five gradients to the
-test's 1e-5 relative bound; then it repeats the card's gradients
+time, and the same computation at a scale-lane shape that the kernels'
+narrow route takes (L 3, B 300, 16 -> 32 -> 64, lane 1 dead; its keys are
+prefixed ``narrow_``).  Each process (``--worker``) first does exactly
+what the test does, on the card and on CPU copies, and holds each of the
+five gradients to the test's 1e-5 relative bound; then it repeats the
+card's gradients
 - after filling the caching allocator's small blocks with NaN (so an
   output or scratch tensor from ``torch.empty`` holds NaN until written),
 - after a kernel has filled every SM's shared memory with NaN,
@@ -21,7 +24,8 @@ one JSON line (the SHA-256 of each gradient on the card and on the CPU);
 the summary counts failures and distinct hashes across processes.  Then,
 in one process, every output and scratch tensor of both kernels between
 guard regions that must come back untouched, at four shapes and every
-cluster size (writes out of bounds).
+cluster size, and at four shapes of the narrow route with its tile
+partials' scratch (writes out of bounds).
 
 Writes ``lane_mlp_hazard.jsonl`` (one line per process) and
 ``lane_mlp_hazard_summary.json`` into ``--out`` (default: the ignored
@@ -97,42 +101,67 @@ def _sha(t) -> str:
                           ).hexdigest()[:16]
 
 
-def worker(repeats: int = 10) -> dict:
+# the test's shape, and a scale-lane shape on the narrow route (16 -> 32
+# -> 64, ragged 300 rows, lane 1 dead): (L, B, din, h, dz)
+CASES = {"test": (3, 77, 256, 256, 384), "narrow": (3, 300, 16, 32, 64)}
+
+
+def _grads_fn(L, B, din, h, dz, dev):
+    """The test's computation at this shape: the five gradients of
+    sum(fused_lane_mlp2(...) * g) with lane 1 dead, from the test's seeds;
+    returns (card step, its inputs, live, g)."""
     import numpy as np
     import torch
-    sys.path[:0] = [os.path.join(ROOT, "src")]
-    from repro_torch.kernels import _launch, lane_mlp, ops
-    dev = torch.device("cuda")
-    # exactly the test's inputs and steps
+    from repro_torch.kernels import ops
     arrs = [t.requires_grad_(True)
-            for t in _mlp(3, 77, 256, 256, 384, dev, lanes=(3,))]
-    live = torch.tensor([1.0, 0.0, 1.0], device=dev)
-    g = _randn(np.random.RandomState(4), 3, 77, 384).to(dev)
+            for t in _mlp(3, B, din, h, dz, dev, lanes=(L,))]
+    live = torch.ones(L, device=dev)
+    live[1] = 0.0
+    g = _randn(np.random.RandomState(4), L, B, dz).to(dev)
 
     def card():
         out = ops.fused_lane_mlp2(*arrs, live)
         return [t.detach().clone() for t in torch.autograd.grad(
             torch.sum(out * g), arrs)]
+    return card, arrs, live, g
 
-    got = card()
-    torch.cuda.synchronize()
-    cpu = [t.detach().cpu().requires_grad_(True) for t in arrs]
-    want = torch.autograd.grad(
-        torch.sum(ops.fused_lane_mlp2(*cpu, live.cpu()) * g.cpu()), cpu)
-    rel = [float((a.cpu() - b).abs().max() / max(float(b.abs().max()), 1.0))
-           for a, b in zip(got, want)]
-    dead_zero = all(not bool(a[1].any()) for a in got)
-    same = lambda run: all(torch.equal(a, b) for a, b in zip(run, got))
-    res = {"pid": os.getpid(), "rel": rel,
-           "pass": max(rel) <= BOUND and dead_zero,
-           "card_sha": [_sha(a) for a in got],
-           "cpu_sha": [_sha(b) for b in want]}
+
+def worker(repeats: int = 10) -> dict:
+    import torch
+    sys.path[:0] = [os.path.join(ROOT, "src")]
+    from repro_torch.kernels import _launch, lane_mlp, ops
+    dev = torch.device("cuda")
+    res = {"pid": os.getpid()}
+    steps = {}
+    for case, shape in CASES.items():
+        card, arrs, live, g = _grads_fn(*shape, dev)
+        got = card()
+        torch.cuda.synchronize()
+        cpu = [t.detach().cpu().requires_grad_(True) for t in arrs]
+        want = torch.autograd.grad(
+            torch.sum(ops.fused_lane_mlp2(*cpu, live.cpu()) * g.cpu()), cpu)
+        rel = [float((a.cpu() - b).abs().max()
+                     / max(float(b.abs().max()), 1.0))
+               for a, b in zip(got, want)]
+        pre = "" if case == "test" else f"{case}_"
+        res.update({f"{pre}rel": rel,
+                    f"{pre}pass": max(rel) <= BOUND and all(
+                        not bool(a[1].any()) for a in got),
+                    f"{pre}card_sha": [_sha(a) for a in got],
+                    f"{pre}cpu_sha": [_sha(b) for b in want]})
+        steps[case] = (card, got, arrs)
+
+    def same(case):
+        card, got, _ = steps[case]
+        return all(torch.equal(a, b) for a, b in zip(card(), got))
 
     # the caching allocator's small blocks (<= 1 MB) hold NaN
     junk = [torch.full((1 << 18,), float("nan"), device=dev)
             for _ in range(512)]
     del junk
-    res["nan_allocator_same"] = same(card())
+    for case in CASES:
+        pre = "" if case == "test" else f"{case}_"
+        res[f"{pre}nan_allocator_same"] = same(case)
     # every SM's shared memory holds NaN before each launch of the step
     lib = _poison_lib()
     sms = _launch.sm_count(0)
@@ -147,12 +176,14 @@ def worker(repeats: int = 10) -> dict:
     lane_mlp.launch, lane_mlp.launch_bwd = poisoned(launch), \
         poisoned(launch_bwd)
     try:
-        res["nan_smem_same"] = same(card())
+        for case in CASES:
+            pre = "" if case == "test" else f"{case}_"
+            res[f"{pre}nan_smem_same"] = same(case)
     finally:
         lane_mlp.launch, lane_mlp.launch_bwd = launch, launch_bwd
     # the forward at each cluster size, with and without save: the sum
     # order does not depend on the cluster, so neither do the bits
-    xs, w0, b0, w1, b1 = (t.detach() for t in arrs)
+    xs, w0, b0, w1, b1 = (t.detach() for t in steps["test"][2])
     base = launch(xs, w0, b0, w1, b1, save=True)
     pick = _launch.cluster_size
     by_c = {}
@@ -167,12 +198,18 @@ def worker(repeats: int = 10) -> dict:
     finally:
         _launch.cluster_size = pick
     res["cluster_same"] = by_c
-    res["repeat_same"] = all(same(card()) for _ in range(repeats))
+    for case in CASES:
+        pre = "" if case == "test" else f"{case}_"
+        res[f"{pre}repeat_same"] = all(same(case) for _ in range(repeats))
     torch.cuda.synchronize()
     return res
 
 
 SENTINEL = 0x7FBADBAD                 # a NaN no kernel computes
+# the narrow route's shapes among the canaries: the scale lanes' encoder
+# and decoder over ragged rows, one row, the widest widths
+NARROW_SHAPES = ((16, 300, 16, 32, 64), (3, 77, 64, 32, 16),
+                 (1, 1, 16, 32, 64), (2, 129, 64, 64, 64))
 GUARD = 4096                          # floats of guard on each side
 
 
@@ -189,7 +226,8 @@ def canaries() -> dict:
     stream = torch.cuda.current_stream().cuda_stream
     bad = []
     for L, B, din, h, dz in ((3, 77, 256, 256, 384), (1, 1, 5, 64, 128),
-                             (2, 128, 10, 128, 256), (1, 2000, 256, 256, 5)):
+                             (2, 128, 10, 128, 256), (1, 2000, 256, 256, 5),
+                             *NARROW_SHAPES):
         xs, w0, b0, w1, b1 = _mlp(B, B, din, h, dz, dev, lanes=(L,))
         g = _randn(np.random.RandomState(B), L, B, dz).to(dev)
         inputs = [xs, w0, b0, w1, b1, g]
@@ -203,17 +241,31 @@ def canaries() -> dict:
             bufs.append(buf)
             return buf[GUARD:GUARD + n].view(torch.float32).view(*shape)
 
-        for c in (1, 2, 4, 8):
+        narrow = lane_mlp.route(din, h, dz) == "narrow"
+        for c in ((0,) if narrow else (1, 2, 4, 8)):
             out, a1, a2 = guarded(L, B, dz), guarded(L, B, h), \
                 guarded(L, B, dz)
-            assert fwd.lane_mlp_fwd(
-                *(t.data_ptr() for t in (xs, w0, b0, w1, b1, out, a1, a2)),
-                L, B, din, h, dz, 1, c, stream) == 0
+            ptrs = [t.data_ptr() for t in (xs, w0, b0, w1, b1, out, a1, a2)]
+            if narrow:
+                assert fwd.lane_mlp_fwd_narrow(*ptrs, L, B, din, h, dz, 1,
+                                               stream) == 0
+            else:
+                assert fwd.lane_mlp_fwd(*ptrs, L, B, din, h, dz, 1, c,
+                                        stream) == 0
             grads = [guarded(L, B, din), guarded(L, din, h), guarded(L, h),
-                     guarded(L, h, dz), guarded(L, dz), guarded(L, B, h)]
-            assert bwd.lane_mlp_bwd(
-                *(t.data_ptr() for t in (g, xs, a1, a2, w0, w1, *grads)),
-                L, B, din, h, dz, 1, stream) == 0
+                     guarded(L, h, dz), guarded(L, dz)]
+            if narrow:
+                part = guarded(*lane_mlp.partial_shape(L, B, din, h, dz))
+                assert bwd.lane_mlp_bwd_narrow(
+                    *(t.data_ptr() for t in (g, xs, a1, a2, w0, w1, *grads,
+                                             part)),
+                    L, B, din, h, dz, 1, part.shape[1], stream) == 0
+            else:
+                grads.append(guarded(L, B, h))
+                assert bwd.lane_mlp_bwd(
+                    *(t.data_ptr() for t in (g, xs, a1, a2, w0, w1,
+                                             *grads)),
+                    L, B, din, h, dz, 1, stream) == 0
         torch.cuda.synchronize()
         for buf in bufs:
             if not (bool((buf[:GUARD] == SENTINEL).all())
@@ -221,7 +273,8 @@ def canaries() -> dict:
                 bad.append(f"guard written at L {L} B {B}")
         if not all(torch.equal(a, b) for a, b in zip(inputs, before)):
             bad.append(f"input changed at L {L} B {B}")
-    return {"shapes": 4, "cluster_sizes": [1, 2, 4, 8], "faults": bad}
+    return {"shapes": 4 + len(NARROW_SHAPES), "cluster_sizes": [1, 2, 4, 8],
+            "faults": bad}
 
 
 def main(argv=None) -> int:
@@ -264,19 +317,25 @@ def main(argv=None) -> int:
             lines.append(json.loads(out.strip().splitlines()[-1]))
     with open(os.path.join(out_dir, "lane_mlp_hazard.jsonl"), "w") as fh:
         fh.writelines(json.dumps(r) + "\n" for r in lines)
-    checks = ("nan_allocator_same", "nan_smem_same", "repeat_same")
+    checks = [f"{pre}{k}" for pre in ("", "narrow_")
+              for k in ("nan_allocator_same", "nan_smem_same", "repeat_same")]
     summary = {
         "processes": len(lines), "process_errors": len(errors),
         "first_error": errors[0] if errors else None,
-        "failed": sum(not r["pass"] for r in lines),
-        "max_rel": [max(r["rel"][i] for r in lines) for i in range(5)]
-        if lines else None,
-        "distinct_card_sha": len({tuple(r["card_sha"]) for r in lines}),
-        "distinct_cpu_sha": len({tuple(r["cpu_sha"]) for r in lines}),
         "bits_differ": {k: sum(not r[k] for r in lines) for k in checks},
         "cluster_bits_differ": sum(not all(r["cluster_same"].values())
                                    for r in lines),
+        "cases": {case: dict(zip(("L", "B", "din", "h", "dz"), shape))
+                  for case, shape in CASES.items()},
         "seconds": time.perf_counter() - t0,
+        **{k: v for pre in ("", "narrow_") for k, v in {
+            f"{pre}failed": sum(not r[f"{pre}pass"] for r in lines),
+            f"{pre}max_rel": [max(r[f"{pre}rel"][i] for r in lines)
+                              for i in range(5)] if lines else None,
+            f"{pre}distinct_card_sha": len({tuple(r[f"{pre}card_sha"])
+                                            for r in lines}),
+            f"{pre}distinct_cpu_sha": len({tuple(r[f"{pre}cpu_sha"])
+                                           for r in lines})}.items()},
         "device": torch.cuda.get_device_name(0)}
     summary["canaries"] = canaries()
     with open(os.path.join(out_dir, "lane_mlp_hazard_summary.json"),
@@ -284,7 +343,9 @@ def main(argv=None) -> int:
         json.dump(summary, fh, indent=1)
     print(json.dumps(summary))
     ok = (lines and not errors and not summary["failed"]
+          and not summary["narrow_failed"]
           and summary["distinct_card_sha"] == 1
+          and summary["narrow_distinct_card_sha"] == 1
           and not any(summary["bits_differ"].values())
           and not summary["cluster_bits_differ"]
           and not summary["canaries"]["faults"])
