@@ -9,10 +9,11 @@ transpose nor the GQA copy is made.  The key length T is S for
 self-attention; the VLM's cross-attention gives it a length of its own
 (the image tokens), which takes no causal mask and no window.  Two
 routes by dtype: fp32 runs IEEE fp32 FMAs on the CUDA cores (any head dim
-up to 128); bf16 runs on the tensor cores (``mma.sync`` m16n8k16 with fp32
-accumulation, ``ldmatrix``, a ``cp.async`` double-buffered kv ring) and
-takes head dims that are multiples of 16 up to 128.  The public wrapper,
-which dispatches CPU tensors to the plain version, is
+up to 128); bf16 runs on Hopper's warpgroup tensor cores (``wgmma`` with
+fp32 accumulation, q/k/v tiles copied by TMA through tensor maps encoded on
+the host at each launch, a producer warpgroup and two consumer warpgroups)
+and takes head dims that are multiples of 16 up to 128.  The public
+wrapper, which dispatches CPU tensors to the plain version, is
 ``kernels.ops.flash_attention``.
 """
 from __future__ import annotations
@@ -76,9 +77,9 @@ def launch(q, k, v, *, causal: bool = True, window: int = 0):
         raise ValueError(f"flash_attention: the bf16 kernel takes head dims "
                          f"that are multiples of 16, got {hd}")
     if q.dtype == torch.bfloat16 and T * K * hd >= 2 ** 31:
-        raise ValueError(f"flash_attention: the bf16 kernel addresses a "
-                         f"batch row of k/v with 32-bit offsets; T * K * hd "
-                         f"= {T * K * hd} is too large")
+        raise ValueError(f"flash_attention: the bf16 kernel takes fewer "
+                         f"than 2**31 elements in a batch row of k/v; T * K "
+                         f"* hd = {T * K * hd} is too large")
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
     q, k, v = (_launch.aligned16(t) for t in (q, k, v))

@@ -13,6 +13,8 @@ has only the port's dependencies:
 """
 import hashlib
 import itertools
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -20,6 +22,11 @@ import torch
 
 from repro_torch.kernels import lane_mlp, ops, ref
 from repro_torch.serve import quant
+
+# chip_smoke.py, for its shape sets (it imports neither JAX nor a card)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+import chip_smoke  # noqa: E402
 
 # Table-3 encoders on the serving path: (din, h, dz)
 ENCODERS = {"g1_active": (5, 64, 128), "g3": (5, 256, 256),
@@ -323,7 +330,11 @@ BEFORE_REDESIGN = {"lane_mlp_bwd": "ba1cb40fc083caff77ebf5316ec6d49afb092394",
                    # flash before its key length of its own: at T = S the
                    # kernel keeps that commit's bits
                    "flash_attention":
-                       "1dea1d2980b41282bb87cd42ca6c8f7c193f61c5"}
+                       "1dea1d2980b41282bb87cd42ca6c8f7c193f61c5",
+                   # flash's bf16 route on mma.sync, before wgmma and TMA
+                   # (the same C interface, T included)
+                   "flash_attention@9f296b7":
+                       "9f296b7492627a688d09aa2617a3e35f3dbd67b4"}
 
 
 def _library_before(name):
@@ -975,7 +986,7 @@ def test_flash_attention_matches_plain_on_card(dtype):
 
 @pytest.mark.gpu
 def test_flash_attention_bf16_refuses_head_dim_off_16_on_card():
-    """The bf16 route runs on m16n8k16 tensor-core tiles: hd 72 raises,
+    """The bf16 route runs on 16-column tensor-core steps: hd 72 raises,
     while fp32 takes it."""
     dev = _card()
     q, k, v = _attn_inputs(np.random.RandomState(17), dev, torch.float32,
@@ -1774,6 +1785,76 @@ def test_flash_attention_equals_kernel_before_key_length_on_card(dtype):
             want = _flash_before(before, q, k, v, causal, window)
             torch.cuda.synchronize()
             assert torch.equal(got, want), (B, S, H, K, hd, causal, window)
+
+
+# flash against its route before wgmma and TMA: chip_smoke.py's phase-2
+# sets ((B, S, T, H, K, hd), causal, window), then S 1, ragged S and every
+# other head dim the bf16 route takes (16, 48, 96, 112: each chunk class)
+_FLASH_SETS = (
+    [((B, S, S, H, K, hd), causal, window)
+     for B, S, H, K, hd in chip_smoke.FLASH_SHAPES + (
+         (1, 1, 16, 8, 128), (1, 70, 2, 1, 16), (1, 130, 4, 2, 48),
+         (2, 96, 4, 4, 96), (1, 257, 2, 2, 112))
+     for causal, window in chip_smoke.FLASH_MASKS]
+    + [(shape, False, 0) for shape in chip_smoke.FLASH_CROSS])
+
+
+def _flash_lib(lib, q, k, v, causal, window):
+    """One launch of a library built from a ``csrc/flash_attention.cu``
+    with the current C interface."""
+    from repro_torch.kernels import flash_attention as fa
+    real = fa._lib
+    fa._lib = lambda: lib
+    try:
+        return ops.flash_attention(q, k, v, causal=causal, window=window)
+    finally:
+        fa._lib = real
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,causal,window", _FLASH_SETS)
+def test_flash_attention_equals_kernel_before_wgmma_on_card(shape, causal,
+                                                            window, dtype):
+    """The bf16 route on wgmma and TMA keeps the bits of its mma.sync route
+    (every kv tile walked in the same order, the same online softmax, P
+    rounded alike, and wgmma sums a k16 step as mma.sync does); the fp32
+    route is unchanged."""
+    from repro_torch.kernels import flash_attention as fa
+    dev = _card()
+    before = fa.bind(_library_before("flash_attention@9f296b7"))
+    B, S, T, H, K, hd = shape
+    rng = np.random.RandomState(S * 131 + T + hd)
+    q, k, v = _attn_inputs(rng, dev, dtype, (B, S, H, hd), (B, T, K, hd),
+                           (B, T, K, hd))
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = _flash_lib(before, q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), float((got.float() - want.float()).abs()
+                                         .max())
+
+
+@pytest.mark.gpu
+def test_flash_attention_back_to_back_launches_on_card():
+    """Launches on other tensors, shapes and head dims follow each other
+    with no synchronisation between them: each output equals its own
+    launch alone (a tensor map reused or read stale would show)."""
+    dev = _card()
+    rng = np.random.RandomState(27)
+    cases = [((2, 300, 8, 2, 128), True, 0), ((2, 300, 8, 2, 128), True, 0),
+             ((1, 200, 4, 4, 80), False, 0), ((2, 300, 8, 2, 128), True, 100),
+             ((1, 64, 2, 2, 64), True, 0)]
+    inputs = [_attn_inputs(rng, dev, torch.bfloat16, (B, S, H, hd),
+                           (B, S, K, hd), (B, S, K, hd))
+              for (B, S, H, K, hd), _, _ in cases]
+    together = [ops.flash_attention(*a, causal=c, window=w)
+                for a, (_, c, w) in zip(inputs, cases)]
+    torch.cuda.synchronize()
+    for a, (_, c, w), got in zip(inputs, cases, together):
+        alone = ops.flash_attention(*a, causal=c, window=w)
+        torch.cuda.synchronize()
+        assert torch.equal(got, alone)
+    assert not torch.equal(together[0], together[1])
 
 
 @pytest.mark.gpu

@@ -7,6 +7,17 @@ import os
 import subprocess
 
 
+def apply_edits(text: str, edits, name: str) -> str:
+    """``text`` with ``edits`` made: one (old, new) pair or a list of them,
+    each ``old`` found exactly once, else ``SystemExit`` naming ``name``."""
+    for old, new in ([edits] if isinstance(edits, tuple) else edits):
+        if text.count(old) != 1:
+            raise SystemExit(f"variant {name!r}: {old!r} is not in the "
+                             f"source exactly once")
+        text = text.replace(old, new)
+    return text
+
+
 def build_variants(source: str, faults: dict, out_dir: str) -> dict:
     """``{"unchanged" or fault name: path of its .so}``: ``csrc/<source>.cu``
     as it stands and one copy per entry of ``faults`` (name -> (text of the
@@ -18,13 +29,7 @@ def build_variants(source: str, faults: dict, out_dir: str) -> dict:
     os.makedirs(out_dir, exist_ok=True)
     sources = {"unchanged": text}
     for name, edits in faults.items():
-        src = text
-        for old, new in ([edits] if isinstance(edits, tuple) else edits):
-            if src.count(old) != 1:
-                raise SystemExit(f"variant {name!r}: {old!r} is not in the "
-                                 f"source exactly once")
-            src = src.replace(old, new)
-        sources[name] = src
+        sources[name] = apply_edits(text, edits, name)
     procs = {}
     for i, (name, src) in enumerate(sources.items()):
         cu = os.path.join(out_dir, f"{source}_{i}.cu")

@@ -27,32 +27,40 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# name -> (text of csrc/flash_attention.cu, its replacement): each a fault
-# a review of the kernel could miss
+# name -> (text of csrc/flash_attention.cu, its replacement), or a list of
+# such pairs: each a fault a review of the kernel could miss
 FAULTS = {
-    # keys 64..127 left out of every row whose mask reaches past key 127:
-    # only rows >= 128, so early rows (large |out|) stay right
-    "dropped kv tile": (
-        "    const uint32_t Kt = k_lane + (t & 1) * STAGE;\n",
-        "    if (t == 1 && n_tiles > 2) continue;\n"
-        "    const uint32_t Kt = k_lane + (t & 1) * STAGE;\n"),
+    # the second kv tile of a walk of more than two masked whole (a key
+    # length of 0 for its softmax): m, l and O pass it unchanged, so rows
+    # whose mask reaches past key 127 lose keys 64..127
+    "dropped kv tile": [
+        ("      if (k0 + BK > T || (causal && k0 + BK - 1 > qw) ||",
+         "      if ((t == 1 && n_tiles > 2) || k0 + BK > T ||\n"
+         "          (causal && k0 + BK - 1 > qw) ||"),
+        ("        online_softmax<true>(s, m, l, alpha, scale_log2, row0, "
+         "k0 + tg * 2,\n                             T, causal, window);",
+         "        online_softmax<true>(s, m, l, alpha, scale_log2, row0, "
+         "k0 + tg * 2,\n                             t == 1 && n_tiles > 2 "
+         "? 0 : T, causal,\n                             window);")],
     "scale 5% high": ("      scale * LOG2E);\n",
                       "      scale * 1.05f * LOG2E);\n"),
     # P's A fragment with its second and third registers swapped: row g + 8
     # keys 0..7 where row g keys 8..15 belong
     "P fragment mis-packed": (
-        "      const uint32_t pf[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),\n"
-        "                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),\n"
-        "                              pack_bf16(s[2 * kk + 1][0], "
-        "s[2 * kk + 1][1]),\n",
-        "      const uint32_t pf[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),\n"
-        "                              pack_bf16(s[2 * kk + 1][0], "
-        "s[2 * kk + 1][1]),\n"
-        "                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),\n"),
+        "    pf[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);\n"
+        "    pf[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);\n",
+        "    pf[kk][1] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);\n"
+        "    pf[kk][2] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);\n"),
     # the diagonal masked: each row loses its own key
     "diagonal key masked": (
         "        if (!(col < T && (!causal || col <= row) &&",
         "        if (!(col < T && (!causal || col < row) &&"),
+    # the pipeline's: K's tensor-map box taken from the next kv head (V's
+    # from the right one), so the scores pair q with another head's keys
+    "K box from the wrong kv head": (
+        "                   full_k + 8 * s, col, kh, kv_begin + t * BK, b);",
+        "                   full_k + 8 * s, col, (kh + 1) % K, kv_begin + "
+        "t * BK, b);"),
 }
 
 

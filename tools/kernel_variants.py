@@ -4,17 +4,23 @@ stands, copies of it with one part taken out, and, for the two cluster
 kernels, the unchanged kernel at each thread-block cluster size, timed at
 the main path's shapes.
 
-    python3 tools/kernel_variants.py [decode lane bwd int8 ssd probe
-                                      distill ...] [--before-distill CU]
+    python3 tools/kernel_variants.py [flash decode lane bwd int8 ssd
+                                      probe distill ...] [--before-distill CU]
 
-Builds ``csrc/<source>.cu`` of each named group (default: all seven) with
+Builds ``csrc/<source>.cu`` of each named group (default: all eight) with
 its variants (one ``nvcc`` each, all started together) into
 ``src/repro_torch/kernels/build/variants/`` (ignored by git) and times each
 with ``chip_smoke.graph_ms`` (CUDA events over CUDA-graph replays; inputs
 warm in L2, as in phase 5).  A variant with a part taken out computes a
 wrong result: its time is what the rest of the kernel costs, so the
 difference to the unchanged kernel is what that part costs on the
-critical path.  Decode runs at the engine's B 8 over 1024 slots with 512
+critical path.  Flash attention's bf16 route runs at internlm2-1.8b's
+``prefill_step`` (B 2, S 2048, H 16, K 8, hd 128, causal), the VLM's
+cross-attention (S 2048 against T 1600, H 32, K 8, no mask) and zamba2's
+shared block (H = K = 32, hd 80, causal); besides parts taken out, its
+variants leave the two consumers' turns unordered, run each tile's softmax
+after the previous P.V, or resize the K/V ring.  Decode runs at the
+engine's B 8 over 1024 slots with 512
 written (internlm2-1.8b's H 16, K 8, hd 128 and zamba2's H = K = 32, hd
 80, bf16); the lane-MLP forward at g2, g3 and g1_active's Table-3 widths at
 buckets 16 and 256 (its cluster route) and at the scale lanes' encoder and
@@ -245,8 +251,62 @@ DISTILL = {
     "mean blocks of 256": ("constexpr int FWD_THREADS = 512;",
                            "constexpr int FWD_THREADS = 256;"),
 }
+# the loops of flash's S (issue_qk) and P.V (issue_pv) products
+_QK = ("  for (int ks = 0; ks < HD / 16; ++ks) {\n"
+       "    const int col = 16 * ks, cls = C::cls(col), c0 = C::start(col);\n"
+       "    const uint32_t off")
+_PV = ("  for (int kk = 0; kk < BK / 16; ++kk) {\n"
+       "    const uint64_t d0")
+FLASH = {
+    # the scores' online softmax left out: P is the raw score, alpha 1
+    "no softmax": (
+        "  float mx[2] = {NEG_INF, NEG_INF};     // of the raw scores\n",
+        "  float mx[2] = {NEG_INF, NEG_INF};     // of the raw scores\n"
+        "  alpha[0] = alpha[1] = 1.f;\n  return;\n"),
+    # the softmax without its exponentials (p = the scaled score less m)
+    "no exponentials": (
+        "      float p = exp2f(fmaf(s[j][e], scale_log2, -m[e >> 1]));",
+        "      float p = fmaf(s[j][e], scale_log2, -m[e >> 1]);"),
+    # no Q.K^T products: the softmax runs on zero scores
+    "no Q.K^T products": (_QK, _QK.replace("ks < HD / 16", "ks < 0")),
+    # no P.V products (the softmax still feeds l)
+    "no P.V products": (_PV, _PV.replace("kk < BK / 16", "kk < 0")),
+    # everything but the copies and the barriers: no products, no softmax
+    "copies only": [
+        (_QK, _QK.replace("ks < HD / 16", "ks < 0")),
+        (_PV, _PV.replace("kk < BK / 16", "kk < 0")),
+        ("  float mx[2] = {NEG_INF, NEG_INF};     // of the raw scores\n",
+         "  float mx[2] = {NEG_INF, NEG_INF};     // of the raw scores\n"
+         "  alpha[0] = alpha[1] = 1.f;\n  return;\n")],
+    # the consumers free every tile as it lands: the copies alone
+    "loads only": [
+        ("    const int tb = ce > cb ? (cb - kv_begin) / BK : n_tiles;",
+         "    const int tb = n_tiles;"),
+        ("    const int te = ce > cb ? (ce - kv_begin + BK - 1) / BK "
+         ": n_tiles;", "    const int te = n_tiles;")],
+    # the consumers' turns at the tensor cores left unordered
+    "no turns": [
+        ("void turn_wait(int consumer) {\n",
+         "void turn_wait(int consumer) {\n  return;\n"),
+        ("void turn_pass(int consumer) {\n",
+         "void turn_pass(int consumer) {\n  return;\n")],
+    # tile t's softmax after tile t-1's P.V has finished (no overlap of the
+    # two within a consumer)
+    "softmax after P.V": (
+        "        wgmma_wait<1>();                // S done, P.V may run on",
+        "        wgmma_wait<0>();"),
+    # a ring of two or four K/V stages
+    "two stages": ("constexpr int NSTAGE = 3;", "constexpr int NSTAGE = 2;"),
+    "four stages": ("constexpr int NSTAGE = 3;", "constexpr int NSTAGE = 4;"),
+}
 CLUSTERS = (1, 2, 4, 8)
-GROUPS = ("decode", "lane", "bwd", "int8", "ssd", "probe", "distill")
+# group -> (csrc/<source>.cu, its edits)
+SOURCES = {"flash": ("flash_attention", FLASH),
+           "decode": ("decode_attention", DECODE),
+           "lane": ("lane_mlp_fwd", LANE), "bwd": ("lane_mlp_bwd", BWD),
+           "int8": ("int8_matmul", INT8), "ssd": ("ssd_chunk", SSD),
+           "probe": ("probe", PROBE), "distill": ("distill_loss", DISTILL)}
+GROUPS = tuple(SOURCES)
 
 
 def _bound(loader, so: str):
@@ -313,6 +373,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build, _launch, ops
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import distill_loss as dl
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import int8_matmul as i8
     from repro_torch.kernels import lane_mlp as lm
     from repro_torch.kernels import probe as pr
@@ -320,27 +381,19 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: needs a CUDA card")
     out_dir = os.path.join(_build.BUILD_DIR, "variants")
-    # group -> (module, its loader's name, source, edits, bind)
-    spec = {"decode": (da, "_lib", "decode_attention", DECODE,
-                       lambda so: da.bind(ctypes.CDLL(so))),
-            "lane": (lm, "_lib", "lane_mlp_fwd", LANE,
-                     lambda so: lm.bind(ctypes.CDLL(so))),
-            "bwd": (lm, "_lib_bwd", "lane_mlp_bwd", BWD,
-                    lambda so: lm.bind_bwd(ctypes.CDLL(so))),
-            "int8": (i8, "_lib", "int8_matmul",
-                     INT8,
-                     lambda so: _bound(i8._lib, so)),
-            "ssd": (sc, "_lib", "ssd_chunk",
-                    SSD,
-                    lambda so: _bound(sc._lib, so)),
-            "probe": (pr, "_lib", "probe",
-                      PROBE,
-                      lambda so: _bound(pr._lib, so)),
-            "distill": (dl, "_lib", "distill_loss", DISTILL,
-                        lambda so: _bound(dl._lib, so))}
+    # group -> (module, its loader's name, bind)
+    spec = {"flash": (fa, "_lib", lambda so: fa.bind(ctypes.CDLL(so))),
+            "decode": (da, "_lib", lambda so: da.bind(ctypes.CDLL(so))),
+            "lane": (lm, "_lib", lambda so: lm.bind(ctypes.CDLL(so))),
+            "bwd": (lm, "_lib_bwd", lambda so: lm.bind_bwd(ctypes.CDLL(so))),
+            "int8": (i8, "_lib", lambda so: _bound(i8._lib, so)),
+            "ssd": (sc, "_lib", lambda so: _bound(sc._lib, so)),
+            "probe": (pr, "_lib", lambda so: _bound(pr._lib, so)),
+            "distill": (dl, "_lib", lambda so: _bound(dl._lib, so))}
     libs, ptxas = {}, {}
     for grp in groups:
-        module, attr, source, edits, bind = spec[grp]
+        module, attr, bind = spec[grp]
+        source, edits = SOURCES[grp]
         sos = build_variants(source, edits, os.path.join(out_dir, grp))
         libs[grp] = (module, attr, {n: bind(so) for n, so in sos.items()})
         for n, so in sos.items():       # each entry's registers and spills
@@ -353,6 +406,20 @@ def main(argv=None) -> int:
                   f"{ptxas[grp][n]}", flush=True)
     gen = torch.Generator().manual_seed(0)
     cases, before = [], []
+    if "flash" in groups:
+        # internlm2-1.8b's prefill_step (causal), the VLM's cross shape and
+        # zamba2's shared block (hd 80, causal)
+        (B, S), T = cs.LM_PREFILL, cs.VLM_IMAGE_TOKENS
+        for H, K, hd, Tk, causal in ((16, 8, 128, S, True),
+                                     (32, 8, 128, T, False),
+                                     (32, 32, 80, S, True)):
+            q = cs._rand(gen, (B, S, H, hd)).bfloat16()
+            k, v = (cs._rand(gen, (B, Tk, K, hd)).bfloat16()
+                    for _ in range(2))
+            cases.append(("flash", f"B={B} S={S} T={Tk} H={H} K={K} hd={hd} "
+                          f"{'causal' if causal else 'full'} bf16",
+                          lambda a=(q, k, v), c=causal:
+                          ops.flash_attention(*a, causal=c)))
     if "decode" in groups:
         B, W, pos = cs.LM["batch"], cs.LM["slots"], cs.LM["slots"] // 2 - 1
         sp = torch.where(torch.arange(W) <= pos, torch.arange(W), -1).to(
