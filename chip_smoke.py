@@ -6,7 +6,9 @@
 Phases, in order; any failure ends the run with a non-zero exit:
 
 1. build  — compile every kernel from ``csrc/*.cu`` (one ``nvcc`` per
-   source, all at once) and print ``-Xptxas -v``.
+   source, all at once) and print ``-Xptxas -v``; decode attention's SASS
+   (``cuobjdump -sass``) must show HMMA in every instantiation of its
+   grouped route and none in its fp32 kernel.
 2. check  — hold each kernel against its plain PyTorch version on the
    card: the lane-MLP forward at the three Table-3 encoder shapes x
    B in {16, 77, 256, 4096} within 1e-4 max-abs and the int8 matmul at the
@@ -33,7 +35,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    at hd 80, ragged S at hd 32 and 64 and S 4096 among them), causal with
    window 0, 128 and 100 (inside a kv tile) and full, and the
    decode-attention wrapper at four GQA ratios (internlm2-1.8b's 2,
-   zamba2's 1 at hd 80, 6 and 8), W 64, 1000 and 1024 with empty slots,
+   zamba2's 1 at hd 80, 6 and 8; in bf16, G >= 4 takes the grouped
+   route), W 64, 1000 and 1024 with empty slots,
    window 0 and 48, fp32 within 2e-5 and bf16 within 3e-2 (the
    reference's bounds), and with every slot empty (0); bf16 flash and
    decode also against their plain versions in fp32 on the same bf16
@@ -676,6 +679,17 @@ def phase_build() -> None:
     log("=== phase 1: build ===")
     for name, text in _build.build_all().items():
         log(f"--- {name}.cu: ptxas -v ---\n{text.strip()}")
+    # decode's grouped route (bf16, G >= 4) runs on the tensor cores; its
+    # fp32 kernel keeps IEEE fp32 on the CUDA cores
+    census = _build.sass_census("decode_attention", ("HMMA", "LDGSTS",
+                                                     "LDSM"))
+    log(f"decode_attention SASS, (HMMA, LDGSTS, LDSM) a function: "
+        f"{ {f: tuple(c.values()) for f, c in census.items()} }")
+    grouped = [c["HMMA"] for f, c in census.items()
+               if "decode_kernel_grouped" in f]
+    fp32 = [c["HMMA"] for f, c in census.items() if "decode_kernelIf" in f]
+    _require(len(grouped) == 8 and min(grouped) > 0 and len(fp32) == 8
+             and max(fp32) == 0, ("decode SASS", census))
 
 
 def phase_check() -> dict:
@@ -2302,6 +2316,7 @@ def _profiled(fn, calls: int, labels: tuple = ()) -> dict:
     kinds = {k: 0.0 for k in (*KERNEL_NAMES.values(), "gemm", "other")}
     names: dict = {}
     ranges = {k: 0.0 for k in labels}
+    decode_routes = set()
 
     def kernel_us(ev) -> float:
         """The kernels launched inside a CPU event, its children's too
@@ -2318,6 +2333,9 @@ def _profiled(fn, calls: int, labels: tuple = ()) -> dict:
         us = e.time_range.elapsed_us()
         low = e.name.lower()
         kind = next((v for k, v in KERNEL_NAMES.items() if k in low), None)
+        if kind == "decode_attention":
+            decode_routes.add("grouped" if "decode_kernel_grouped" in low
+                              else "slots")
         if kind is None:
             kind = "gemm" if any(t in low for t in GEMM_NAMES) else "other"
         kinds[kind] += us
@@ -2328,7 +2346,8 @@ def _profiled(fn, calls: int, labels: tuple = ()) -> dict:
                                   for k, v in kinds.items()},
            "device_busy_share": sum(kinds.values()) / wall_us,
            "top": sorted(((v / calls / 1e3, k) for k, v in names.items()),
-                         reverse=True)[:8]}
+                         reverse=True)[:8],
+           "decode_routes": sorted(decode_routes)}
     if labels:
         busy = sum(kinds.values())
         out["device_ms_per_call_by_range"] = dict(
@@ -2355,7 +2374,18 @@ def _profile_decode(params, cfg, cell: dict, labels: tuple = (),
     out = {"steps": steps, "step_ms_unprofiled": eng.step_ms[-steps:]}
     out.update(_profiled(eng.step, steps, labels))
     log(f"decode profile: {out}")
+    _require(out["decode_routes"] == [_decode_route(cfg)],
+             ("decode routes", out["decode_routes"], _decode_route(cfg)))
     return out
+
+
+def _decode_route(cfg) -> str:
+    """The decode-attention route an LM config's decode steps take on the
+    card (``kernels/decode_attention.route`` at its heads and dtype)."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    return da.route(cfg.n_heads // cfg.n_kv_heads, cfg.head_dim,
+                    getattr(torch, cfg.dtype))
 
 
 def lm_card_vs_cpu(cell: dict = LM, c: dict = LM_CHECK) -> dict:
@@ -2689,6 +2719,9 @@ def _lockstep_decode(params, cfg, cache, cell: dict, per_step: int,
              and int(gen.max()) < cfg.vocab_size, gen.shape)
     with torch.no_grad():
         prof = _profiled(one_step, cell["profile_steps"])
+    want = [_decode_route(cfg)] if per_step else []
+    _require(prof["decode_routes"] == want,
+             ("decode routes", prof["decode_routes"], want))
     gen_ms = sum(step_ms[P:])
     return {"batch": Bd, "slots": cell["slots"], "prompt": P, "new": new,
             "steps": P + new,
@@ -4938,6 +4971,11 @@ def main(argv=None) -> int:
             sc = timing[f"{name}_scale"]    # shapes
             kernels[-1]["scale"] = {k: sc[k] for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+        if name == "decode_attention":      # its grouped route's shapes
+            fields = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+            kernels[-1]["grouped"] = {
+                k: {f: timing[f"{name}_{k}"][f] for f in fields}
+                for k in ("qwen3", "vlm", "vlm_image")}
         if "attention" in name:             # fp32 above, bf16 here; bf16
             kernels[-1]["max_abs_err_bf16"] = errs[f"{name}/bfloat16"]
             kernels[-1]["bf16_bound_ratio"] = errs[   # vs fp32 plain, <= 1

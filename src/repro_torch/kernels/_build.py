@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import threading
 
@@ -84,6 +85,28 @@ def build_all() -> dict:
             with open(log) as fh:
                 logs[name] = fh.read()
         return logs
+
+
+def sass_census(name: str, ops: tuple) -> dict:
+    """``{kernel function: {op: count}}`` over the SASS of the built
+    ``csrc/<name>.cu`` (``cuobjdump -sass``, beside nvcc): how often each
+    instruction of ``ops`` (e.g. "HMMA", "LDGSTS") occurs in each function,
+    by its mangled name."""
+    build_all()
+    cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", _target(name)[1]],
+                          capture_output=True, text=True, check=True).stdout
+    census, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            census[fn] = dict.fromkeys(ops, 0)
+        elif fn:
+            for op in ops:
+                if re.search(rf"\b{re.escape(op)}\b", line):
+                    census[fn][op] += 1
+    return census
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -334,7 +334,11 @@ BEFORE_REDESIGN = {"lane_mlp_bwd": "ba1cb40fc083caff77ebf5316ec6d49afb092394",
                    # flash's bf16 route on mma.sync, before wgmma and TMA
                    # (the same C interface, T included)
                    "flash_attention@9f296b7":
-                       "9f296b7492627a688d09aa2617a3e35f3dbd67b4"}
+                       "9f296b7492627a688d09aa2617a3e35f3dbd67b4",
+                   # decode before its grouped route: the slots kernel
+                   # alone, at every G (the same decode_attention entry)
+                   "decode_attention@010a1d7":
+                       "010a1d7cdd97d971bcb8aaf7ee5fa4b56392b54f"}
 
 
 def _library_before(name):
@@ -1037,9 +1041,11 @@ def test_forward_only_kernels_refuse_autograd_on_card(name):
 # rtol), chip_smoke.py's TOL_DECODE_BF16_F32
 DECODE_BF16_F32_TOL = (1e-4, 1e-2)
 # decode's (H, K, hd): GQA ratios 2 (internlm2-1.8b), 1 (zamba2, hd 80), 6
-# (internlm2-20b, nemotron-4-15b), 8 (yi-6b), and the smokes' hd 64
+# (internlm2-20b, nemotron-4-15b), 8 (yi-6b, qwen3-moe), 4 (the VLM), and
+# the smokes' hd 64; in bf16, G >= 4 takes the grouped route, also at hd 64
 DECODE_HEADS = ((16, 8, 128), (32, 32, 80), (48, 8, 128), (32, 4, 128),
-                (4, 2, 64))
+                (4, 2, 64), (32, 8, 128), (16, 4, 64), (48, 8, 64),
+                (32, 4, 64))
 
 
 def _prefix_slots(W, pos):
@@ -1084,16 +1090,21 @@ def test_decode_attention_matches_plain_on_card(dtype):
     slots that the cluster's split does not divide among them), pos 0,
     W - 1 and inside, with and without a window; the reference's bounds,
     and bf16 also near its own rounding against fp32."""
+    from repro_torch.kernels import decode_attention as da
     dev = _card()
     rng = np.random.RandomState(8)
     B = 2
+    routes = set()
     for (H, K, hd), (W, pos) in itertools.product(
             DECODE_HEADS, ((64, 40), (77, 76), (1000, 0), (1024, 700))):
         q, kc, vc = _attn_inputs(rng, dev, dtype, (B, H, hd),
                                  (B, W, K, hd), (B, W, K, hd))
+        routes.add(da.route(H // K, hd, dtype))
         for window in (0, 48):
             _decode_check(dev, dtype, q, kc, vc, _prefix_slots(W, pos), pos,
                           window, (H, K, hd, W, pos, window))
+    assert routes == ({"slots", "grouped"} if dtype == torch.bfloat16
+                      else {"slots"})
 
 
 @pytest.mark.gpu
@@ -1101,10 +1112,14 @@ def test_decode_attention_matches_plain_on_card(dtype):
 def test_decode_attention_wrapped_ring_on_card(dtype):
     """A windowed ring that has wrapped (slot positions not monotone in
     the slot index), with windows inside and equal to the ring, at the
-    engine's batch of 8 (clusters of 8 blocks) and at 64 (clusters of 1)."""
+    engine's batch of 8 (clusters of 8 blocks) and at 64 (clusters of 1);
+    in bf16 G 4, 6 and 8 take the grouped route (clusters of 4, 2 and 1
+    blocks)."""
     dev = _card()
     rng = np.random.RandomState(11)
-    for B, (H, K, hd) in ((8, (16, 8, 128)), (64, (32, 32, 80))):
+    for B, (H, K, hd) in ((8, (16, 8, 128)), (64, (32, 32, 80)),
+                          (8, (32, 4, 128)), (8, (48, 8, 64)),
+                          (8, (32, 8, 128)), (64, (32, 8, 64))):
         W, steps = 77, 300
         q, kc, vc = _attn_inputs(rng, dev, dtype, (B, H, hd),
                                  (B, W, K, hd), (B, W, K, hd))
@@ -1118,21 +1133,25 @@ def test_decode_attention_wrapped_ring_on_card(dtype):
 def test_decode_attention_empty_shares_on_card(dtype):
     """Blocks of a cluster whose slots are all empty while others' are
     not (three written slots at the front, or a run at the back of 1024),
-    and a cache with every slot empty, which gives exact zeros."""
+    and a cache with every slot empty, which gives exact zeros; at G 2
+    and, in bf16 on the grouped route, at G 8 and 4 (hd 128 and 64)."""
     dev = _card()
     rng = np.random.RandomState(12)
-    B, H, K, hd, W = 8, 16, 8, 128, 1024
-    q, kc, vc = _attn_inputs(rng, dev, dtype, (B, H, hd), (B, W, K, hd),
-                             (B, W, K, hd))
+    B, W = 8, 1024
     back = np.full(W, -1, np.int32)
     back[1000:1010] = np.arange(10)
-    for sp, pos in ((_prefix_slots(3, 2), 2), (torch.from_numpy(back), 9)):
-        sp = torch.cat([sp, torch.full((W - len(sp),), -1,
-                                       dtype=torch.int32)])
-        _decode_check(dev, dtype, q, kc, vc, sp, pos, 0, (pos,))
-    empty = torch.full((W,), -1, dtype=torch.int32)
-    got = _decode_check(dev, dtype, q, kc, vc, empty, 10, 0, "empty")
-    assert not bool((got != 0).any())
+    for H, K, hd in ((16, 8, 128), (32, 4, 128), (32, 8, 64)):
+        q, kc, vc = _attn_inputs(rng, dev, dtype, (B, H, hd), (B, W, K, hd),
+                                 (B, W, K, hd))
+        for sp, pos in ((_prefix_slots(3, 2), 2),
+                        (torch.from_numpy(back), 9)):
+            sp = torch.cat([sp, torch.full((W - len(sp),), -1,
+                                           dtype=torch.int32)])
+            _decode_check(dev, dtype, q, kc, vc, sp, pos, 0, (H, K, pos))
+        empty = torch.full((W,), -1, dtype=torch.int32)
+        got = _decode_check(dev, dtype, q, kc, vc, empty, 10, 0,
+                            (H, K, "empty"))
+        assert not bool((got != 0).any()), (H, K)
 
 
 @pytest.mark.gpu
@@ -1140,16 +1159,83 @@ def test_decode_attention_empty_shares_on_card(dtype):
 def test_decode_attention_repeats_bit_for_bit_on_card(dtype):
     """No atomics and a fixed merge order: two launches give the same
     bits, split over clusters of 8 blocks (B 8, K 8) and of 1 (B 64, K
-    32)."""
+    32); in bf16 the grouped route at G 8, 6 and 4 (clusters of 4, 2 and
+    2 blocks)."""
     dev = _card()
     rng = np.random.RandomState(13)
-    for B, H, K, hd in ((8, 16, 8, 128), (64, 32, 32, 80)):
+    for B, H, K, hd in ((8, 16, 8, 128), (64, 32, 32, 80), (8, 32, 4, 128),
+                        (8, 48, 8, 128), (8, 32, 8, 64)):
         q, kc, vc = _attn_inputs(rng, dev, dtype, (B, H, hd),
                                  (B, 1024, K, hd), (B, 1024, K, hd))
         sp = _prefix_slots(1024, 511).to(dev)
         runs = [ops.decode_attention(q, kc, vc, sp, 511) for _ in range(2)]
         torch.cuda.synchronize()
         assert torch.equal(*runs), (B, K)
+
+
+def _decode_before(lib, q, kc, vc, sp, pos, window=0):
+    """One launch of 010a1d7's decode library (the slots kernel at every
+    G) through its C interface, at the cluster size its launcher picked."""
+    import ctypes
+    import math
+    from repro_torch.kernels import _launch
+    from repro_torch.kernels import decode_attention as da
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.decode_attention.argtypes = [P] * 5 + [I] * 7 + [F, I, I, P]
+    B, H, hd = q.shape
+    W, K = kc.shape[1], kc.shape[2]
+    out = torch.empty_like(q)
+    rc = lib.decode_attention(
+        q.data_ptr(), kc.data_ptr(), vc.data_ptr(), sp.data_ptr(),
+        out.data_ptr(), B, H, K, W, hd, pos, window, 1.0 / math.sqrt(hd),
+        _launch.cluster_size(B * K, q.device, da.BLOCKS_PER_SM),
+        da.DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    return out
+
+
+# the slots route against 010a1d7's kernel: chip_smoke.py's phase-2 decode
+# sets in fp32 (every G), in bf16 at G 1 and 2, and a bf16 G 4 at hd 72 (not
+# a multiple of 16, so the slots route)
+_DECODE_SLOTS_SETS = (
+    [(torch.float32, heads) for heads in chip_smoke.DECODE_HEADS]
+    + [(torch.bfloat16, heads) for heads in chip_smoke.DECODE_HEADS
+       if heads[0] // heads[1] <= 2]
+    + [(torch.bfloat16, (32, 8, 72))])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,heads", _DECODE_SLOTS_SETS,
+                         ids=[f"{str(d)[6:]}-{h}" for d, h in
+                              _DECODE_SLOTS_SETS])
+def test_decode_attention_slots_route_equals_kernel_before_grouped_on_card(
+        dtype, heads):
+    """fp32 at every G, and bf16 at G <= 3 or a head dim that is not a
+    multiple of 16, keep the slots kernel: the same bits as 010a1d7's
+    library at phase 2's W, windows and slot positions, over the VLM's
+    image cache and over an empty cache."""
+    from repro_torch.kernels import decode_attention as da
+    dev = _card()
+    lib = _library_before("decode_attention@010a1d7")
+    H, K, hd = heads
+    assert da.route(H // K, hd, dtype) == "slots"
+    rng = np.random.RandomState(H * 7 + K + hd)
+    B = chip_smoke.LM["batch"]
+    cases = [(W, W * 3 // 4, chip_smoke._slot_pos(W, W * 3 // 4), window)
+             for W in chip_smoke.DECODE_W
+             for window in chip_smoke.DECODE_WINDOWS]
+    Wi = chip_smoke.VLM_IMAGE_TOKENS
+    cases += [(Wi, Wi - 1, torch.arange(Wi, dtype=torch.int32, device=dev),
+               0),
+              (64, 10, torch.full((64,), -1, dtype=torch.int32, device=dev),
+               0)]
+    for W, pos, sp, window in cases:
+        q, kc, vc = _attn_inputs(rng, dev, dtype, (B, H, hd), (B, W, K, hd),
+                                 (B, W, K, hd))
+        got = ops.decode_attention(q, kc, vc, sp, pos, window=window)
+        want = _decode_before(lib, q, kc, vc, sp, pos, window)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (W, pos, window)
 
 
 @pytest.mark.gpu

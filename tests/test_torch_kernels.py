@@ -151,3 +151,39 @@ def test_build_flags_and_missing_nvcc(monkeypatch):
     monkeypatch.setattr(cpp, "CUDA_HOME", None)
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.nvcc_path()
+
+
+def test_decode_attention_route_at_every_registry_shape():
+    """The decode kernel's route is a function of (G, hd, dtype): at every
+    (G, hd) of the registry's configs that decode through it (dense, MoE,
+    hybrid and VLM; full configs and smokes), in the config's own dtype
+    and in fp32 (the cut-depth fp32 copies), bf16 with G >= 4 takes the
+    grouped route and everything else the slots route."""
+    from repro_torch.configs import ARCH_IDS, get_config, get_smoke
+    from repro_torch.kernels import decode_attention as da
+    bf16, f32 = torch.bfloat16, torch.float32
+    seen = {}
+    for arch in ARCH_IDS:
+        for cfg in (get_config(arch), get_smoke(arch)):
+            if cfg.family not in ("dense", "moe", "hybrid", "vlm"):
+                continue
+            G, hd = cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+            for dtype in {getattr(torch, cfg.dtype), f32}:
+                seen[(str(dtype), G, hd)] = da.route(G, hd, dtype)
+    want = {("torch.bfloat16", 6, 128): "grouped",   # internlm2-20b, nemotron
+            ("torch.bfloat16", 8, 128): "grouped",   # yi-6b, qwen3, kimi-k2
+            ("torch.bfloat16", 4, 128): "grouped",   # llama-3.2-vision
+            ("torch.bfloat16", 2, 128): "slots",     # internlm2-1.8b
+            ("torch.bfloat16", 1, 80): "slots",      # zamba2
+            ("torch.bfloat16", 2, 64): "slots",      # apcvfl-paper
+            ("torch.float32", 6, 128): "slots", ("torch.float32", 8, 128):
+            "slots", ("torch.float32", 4, 128): "slots",
+            ("torch.float32", 2, 128): "slots", ("torch.float32", 1, 80):
+            "slots", ("torch.float32", 2, 64): "slots",   # and the smokes
+            ("torch.float32", 1, 64): "slots"}            # zamba2's smoke
+    assert seen == want
+    # the edges: G 3, a head dim that is not a multiple of 16, fp32
+    assert da.route(3, 128, bf16) == "slots"
+    assert da.route(4, 72, bf16) == "slots"
+    assert da.route(8, 16, bf16) == "grouped"
+    assert da.route(8, 128, f32) == "slots"

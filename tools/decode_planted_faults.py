@@ -6,7 +6,9 @@ kernel against its plain version in fp32 (``TOL_DECODE_BF16_F32``).
 
 Builds ``csrc/decode_attention.cu`` as it stands and copies of it that each
 carry one planted fault, all with one ``nvcc`` each started together, into
-``src/repro_torch/kernels/build/faults/`` (ignored by git).  Each build runs
+``src/repro_torch/kernels/build/faults/`` (ignored by git): four in the
+slots route (G 1 and 2 here) and five in the grouped route (G 4, 6 and 8
+here), one of them P rounded once to bf16.  Each build runs
 through ``ops.decode_attention`` on the card at phase 2's cases
 (``chip_smoke.DECODE_HEADS`` x ``DECODE_W`` x ``DECODE_WINDOWS``, batch 8,
 ``pos`` = 3W/4 with a few empty slots) in bf16, against the plain version
@@ -45,6 +47,23 @@ FAULTS = {
     "wrong kv head": ("kh * G + g) * hd + d0;", "g * K + kh) * hd + d0;"),
     # the window's oldest slot, pos - window, kept
     "window >=": ("sp > pos - window)", "sp >= pos - window)"),
+    # the grouped route (bf16, G >= 4): the last block's partial left out
+    # of each block's final merge (where the cluster has more than one)
+    "grouped: dropped partial": (
+        "for (int r = 0; r < C; ++r) A += mine[",
+        "for (int r = 0; r < C - (C > 1); ++r) A += mine["),
+    # O not rescaled when a later tile raises a head's running max (its
+    # denominator still is)
+    "grouped: rescale skipped": (
+        "    for (int e = 0; e < 4; ++e) o[j][e] *= alpha;",
+        "    for (int e = 0; e < 4; ++e) o[j][e] *= 1.f;"),
+    # K and V read from the next kv head (kh + 1) % K
+    "grouped: wrong kv head": ("+ kh) * HD;", "+ (kh + 1) % K) * HD;"),
+    "grouped: window >=": ("at > pos - window);", "at >= pos - window);"),
+    # P's low half dropped: P rounded once to bf16
+    "grouped: P rounded to bf16": (
+        "pa[2 * j + 1] = bits(__floats2bfloat162_rn(p[0] - hf.x, p[1] - "
+        "hf.y));", "pa[2 * j + 1] = 0u;"),
 }
 
 

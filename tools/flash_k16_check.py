@@ -236,25 +236,9 @@ def sass_census() -> dict:
     count of each tensor-core and copy instruction in its SASS
     (``cuobjdump -sass``): HGMMA (wgmma), HMMA (mma.sync), UTMALDG (TMA
     loads), LDGSTS (cp.async), LDSM (ldmatrix)."""
-    import re
     from repro_torch.kernels import _build
-    _build.build_all()
-    so = _build._target("flash_attention")[1]
-    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
-    text = subprocess.run([cuobjdump, "-sass", so], capture_output=True,
-                          text=True, check=True).stdout
-    census, name = {}, None
-    for line in text.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            name = m.group(1)
-            census[name] = dict.fromkeys(
-                ("HGMMA", "HMMA.16816", "UTMALDG", "LDGSTS", "LDSM"), 0)
-        elif name:
-            for op in census[name]:
-                if re.search(rf"\b{re.escape(op)}\b", line):
-                    census[name][op] += 1
-    return census
+    return _build.sass_census("flash_attention", (
+        "HGMMA", "HMMA.16816", "UTMALDG", "LDGSTS", "LDSM"))
 
 
 def nvcc_seconds(runs: int = 2) -> list:

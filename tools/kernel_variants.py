@@ -20,9 +20,12 @@ cross-attention (S 2048 against T 1600, H 32, K 8, no mask) and zamba2's
 shared block (H = K = 32, hd 80, causal); besides parts taken out, its
 variants leave the two consumers' turns unordered, run each tile's softmax
 after the previous P.V, or resize the K/V ring.  Decode runs at the
-engine's B 8 over 1024 slots with 512
-written (internlm2-1.8b's H 16, K 8, hd 128 and zamba2's H = K = 32, hd
-80, bf16); the lane-MLP forward at g2, g3 and g1_active's Table-3 widths at
+engine's B 8 over 1024 slots with 512 written (internlm2-1.8b's H 16, K
+8, hd 128 and zamba2's H = K = 32, hd 80 on the slots route; qwen3-moe's
+H 32, K 4 and the VLM's H 32, K 8, hd 128 on the grouped route) and over
+the VLM's 1600 image tokens, every slot valid, all bf16; each route's
+variants leave the other route's times as they are, and the cluster sweep
+sets both routes' sizes; the lane-MLP forward at g2, g3 and g1_active's Table-3 widths at
 buckets 16 and 256 (its cluster route) and at the scale lanes' encoder and
 decoder (16 lanes of 8,192 rows with ``save``: its narrow route); the
 lane-MLP backward (``bwd``) at the eight Table-3 autoencoder MLPs at the
@@ -69,6 +72,37 @@ DECODE = {
                   "the cluster runs\n", "  return;\n"),
     # every block stores its partial to rank 0, but rank 0 merges nothing
     "no rank-0 merge": ("  if (rank != 0) return;", "  return;"),
+    # the grouped route (bf16, G >= 4): no tile (launch, Q's fragments, the
+    # slot positions, the merges and the barriers)
+    "grouped: no slot loop": ("    const int nt = (cn + TS - 1) / TS;",
+                              "    const int nt = 0;"),
+    # its tiles' rows zero-filled, none read
+    "grouped: no K/V loads": ("          const bool in = (mask >> r) & 1u;",
+                              "          const bool in = false;"),
+    # no score products (K's fragments not read): the softmax on zeros
+    "grouped: no score products": (
+        "  for (int kk = 0; kk < KS; ++kk) {\n    // slots 0..7",
+        "  for (int kk = 0; kk < 0; ++kk) {\n    // slots 0..7"),
+    # no P.V products (V's fragments not read)
+    "grouped: no P.V products": ("  for (int dp = 0; dp < DN / 2; ++dp) {",
+                                 "  for (int dp = 0; dp < 0; ++dp) {"),
+    # the blocks stop once their warps' partials are in shared memory: no
+    # block merge, no stores to rank 0, no cluster barrier, no rank-0 merge
+    "grouped: no merges": ("    wl[warp][g] = l;\n  }\n  __syncthreads();\n",
+                           "    wl[warp][g] = l;\n  }\n  return;\n"),
+    # every block stores its slices, but none merges its own
+    "grouped: no final merge": (
+        "  cluster_arrive();                     // every block holds its "
+        "slices\n  cluster_wait();\n",
+        "  cluster_arrive();\n  cluster_wait();\n  return;\n"),
+    # a ring of three stages a warp
+    "grouped: three stages": ("constexpr int NS = 2;",
+                              "constexpr int NS = 3;"),
+    # blocks of 8 or 2 warps
+    "grouped: 8 warps a block": ("constexpr int GWARPS = 4;",
+                                 "constexpr int GWARPS = 8;"),
+    "grouped: 2 warps a block": ("constexpr int GWARPS = 4;",
+                                 "constexpr int GWARPS = 2;"),
 }
 LANE = {
     # the slabs stream and the barriers run, but no FMA
@@ -424,13 +458,21 @@ def main(argv=None) -> int:
         B, W, pos = cs.LM["batch"], cs.LM["slots"], cs.LM["slots"] // 2 - 1
         sp = torch.where(torch.arange(W) <= pos, torch.arange(W), -1).to(
             torch.int32).cuda()
-        for H, K, hd in ((16, 8, 128), (32, 32, 80)):
+        Wi = cs.VLM_IMAGE_TOKENS
+        spi = torch.arange(Wi, dtype=torch.int32, device="cuda")
+        # internlm2's G 2, zamba2's G 1, qwen3-moe's G 8 and the VLM's G 4
+        # over the engine's cache; the VLM's image K/V, every slot valid
+        for H, K, hd, Wc, sc, p in ((16, 8, 128, W, sp, pos),
+                                    (32, 32, 80, W, sp, pos),
+                                    (32, 4, 128, W, sp, pos),
+                                    (32, 8, 128, W, sp, pos),
+                                    (32, 8, 128, Wi, spi, Wi - 1)):
             q = cs._rand(gen, (B, H, hd)).bfloat16()
-            kc, vc = (cs._rand(gen, (B, W, K, hd)).bfloat16()
+            kc, vc = (cs._rand(gen, (B, Wc, K, hd)).bfloat16()
                       for _ in range(2))
-            cases.append(("decode", f"B={B} W={W} valid={pos + 1} H={H} "
-                          f"K={K} hd={hd} bf16", lambda a=(q, kc, vc):
-                          ops.decode_attention(*a, sp, pos)))
+            cases.append(("decode", f"B={B} W={Wc} valid={p + 1} H={H} "
+                          f"K={K} hd={hd} bf16", lambda a=(q, kc, vc, sc, p):
+                          ops.decode_attention(*a)))
     L, Bs = len(cs.SCALE["seeds"]) * cs.SCALE["parties"], cs.SCALE["batch"]
     if "lane" in groups:
         for name, Bm in (("g2", 16), ("g2", 256), ("g3", 256),
@@ -503,7 +545,7 @@ def main(argv=None) -> int:
             if args.before_distill:
                 before.append((f"N={N} D={Dn} M={Mn}", an))
     summary = {}
-    cluster_size = _launch.cluster_size
+    cluster_size, grouped_cluster = _launch.cluster_size, da.grouped_cluster
     for kernel, shape, fn in cases:
         module, attr, variants = libs[kernel]
         loader = getattr(module, attr)
@@ -519,11 +561,13 @@ def main(argv=None) -> int:
                                            and "L=" not in shape)
             for c in (CLUSTERS if sweep else ()):
                 _launch.cluster_size = lambda *_, c=c: c
+                da.grouped_cluster = lambda *_, c=c: c
                 row[f"cluster {c}"] = cs.graph_ms(fn) * 1e3
                 print(f"{kernel} {shape} | unchanged, cluster {c}: "
                       f"{row[f'cluster {c}']:.3f} us", flush=True)
         finally:
             _launch.cluster_size = cluster_size
+            da.grouped_cluster = grouped_cluster
             setattr(module, attr, loader)
     if before:
         lib = _distill_before(args.before_distill)
