@@ -2198,8 +2198,9 @@ def serve_cell(cell: dict, prefill: tuple, labels: tuple = ()) -> dict:
     same weights drawn again (timed), ``prefill_step`` at ``prefill``
     twice (the first also warms cuBLAS) and once under the profiler, and
     ten warm decode steps under the profiler; with ``labels``, the
-    profiles split by MOE_RANGES (``_moe_ranges``).  The launches of the
-    CLI run and of the two timed ``prefill_step`` calls are the path's."""
+    profiles split by the program's spans of those names (MOE_RANGES).
+    The launches of the CLI run and of the two timed ``prefill_step``
+    calls are the path's."""
     import time
     import torch
     from repro_torch.configs import get_config
@@ -2272,10 +2273,9 @@ def serve_cell(cell: dict, prefill: tuple, labels: tuple = ()) -> dict:
     _require(pcounts["flash_attention"] == 2 * L, pcounts)
     del lg
     peak = torch.cuda.max_memory_allocated()
-    with _moe_ranges() if labels else contextlib.nullcontext():
-        prof = _profiled(lambda: prefill_step(params, cfg, {"tokens": toks}),
-                         1, labels)
-        res["decode_profile"] = _profile_decode(params, cfg, cell, labels)
+    prof = _profiled(lambda: prefill_step(params, cfg, {"tokens": toks}),
+                     1, labels)
+    res["decode_profile"] = _profile_decode(params, cfg, cell, labels)
     res["prefill_step"] = {"B": B, "S": S, "ms": walls, "launches": pcounts,
                            "peak_bytes": peak, "profile": prof}
     log(f"prefill_step B={B} S={S}: {walls} ms, peak {peak / 2**30:.2f} "
@@ -2300,7 +2300,7 @@ def _profiled(fn, calls: int, labels: tuple = ()) -> dict:
     the rest: PyTorch's elementwise, copy and reduction kernels), its busy
     share of the wall, and the largest device items; with ``labels``, also
     the card's time per call inside each ``record_function`` range of those
-    names (``_moe_ranges``)."""
+    names (the program's spans, ``repro_torch.spans``)."""
     import time
     import torch
     from torch.autograd import DeviceType
@@ -2328,7 +2328,9 @@ def _profiled(fn, calls: int, labels: tuple = ()) -> dict:
             if e.device_type == DeviceType.CPU:
                 ranges[e.name] += kernel_us(e)
             continue
-        if e.device_type != DeviceType.CUDA:
+        # a span's range on the device timeline is no operation
+        if e.device_type != DeviceType.CUDA or getattr(
+                e, "is_user_annotation", False):
             continue
         us = e.time_range.elapsed_us()
         low = e.name.lower()
@@ -2554,44 +2556,11 @@ def _same_routes(cfg, card: list, cpu: list, what: str) -> dict:
             "tokens_with_swapped_order": swapped}
 
 
-# the record_function ranges phase 13 splits an MoE decode step into
-MOE_RANGES = ("moe routing", "moe dispatch+combine", "moe experts",
-              "attention")
-
-
-@contextlib.contextmanager
-def _moe_ranges():
-    """Wrap the MoE's routing, its dispatch and combine, its expert
-    products and the attention (projections, RoPE, the cache write and
-    the kernel; full-sequence and decode) in ``record_function`` ranges
-    named MOE_RANGES while the block runs."""
-    import types
-    from torch.profiler import record_function
-    from repro_torch.models import attention as attn
-    from repro_torch.models import ffn
-
-    def ranged(name, fn):
-        def wrapped(*a, **kw):
-            with record_function(name):
-                return fn(*a, **kw)
-        return wrapped
-    route, dc, experts, attention = MOE_RANGES
-    saved = {(ffn, "route"): route, (ffn, "_experts"): experts,
-             (attn, "attention"): attention,
-             (attn, "decode_attention"): attention}
-    real = {key: getattr(*key) for key in saved}
-    real_classes = {n: getattr(ffn, n) for n in ("_Gather", "_Sum")}
-    for (mod, name), label in saved.items():
-        setattr(mod, name, ranged(label, real[(mod, name)]))
-    for n, cls in real_classes.items():
-        setattr(ffn, n, types.SimpleNamespace(apply=ranged(dc, cls.apply)))
-    try:
-        yield
-    finally:
-        for (mod, name), fn in real.items():
-            setattr(mod, name, fn)
-        for n, cls in real_classes.items():
-            setattr(ffn, n, cls)
+# the program's spans (``repro_torch.spans``) phase 13 splits an MoE
+# prefill and decode step into; ``block.attention`` holds the projections,
+# RoPE, the decode cache write and the kernel
+MOE_RANGES = ("moe.route", "moe.dispatch_combine", "moe.experts",
+              "block.attention")
 
 
 def _zamba_cfg(**kw):
@@ -3721,9 +3690,11 @@ def phase_lm_train() -> dict:
 
 def phase_moe_audio() -> dict:
     """The MoE decoder and the audio encoder (phase 13): (a) the MoE cell
-    through the CLI, ``prefill_step`` and a profiled decode, split by
-    range (``serve_cell``); (b) depth 2 against the CPU; (c) decode
-    against forward; (d) hubert; (e) training."""
+    through the CLI, ``prefill_step`` and a profiled decode, the card's
+    time split by the program's spans MOE_RANGES (``serve_cell``; the
+    ``block.attention`` span holds the decode's cache write, as the
+    ``attn.decode_attention`` range before it did); (b) depth 2 against
+    the CPU; (c) decode against forward; (d) hubert; (e) training."""
     import torch
     log(f"=== phase 13: serve {MOE['arch']} at full width and depth ===")
     res = serve_cell(MOE, MOE_PREFILL, MOE_RANGES)
@@ -4282,7 +4253,10 @@ def _busy(fn, kind_of=_gemm_or_other, kinds=("gemm", "other")) -> dict:
     ms = dict.fromkeys(kinds, 0.0)
     launches = dict.fromkeys(kinds, 0)
     for e in prof.profiler.kineto_results.events():
-        if e.device_type() != torch.autograd.DeviceType.CUDA:
+        # a span's range on the device timeline is no operation
+        note = getattr(e, "is_user_annotation", None)
+        if e.device_type() != torch.autograd.DeviceType.CUDA or (
+                note is not None and note()):
             continue
         kind = kind_of(e.name())
         ms[kind] += (e.end_ns() - e.start_ns()) / 1e6

@@ -25,6 +25,10 @@ Where a straight translation would differ:
   replicated before the sort, and the slot math (``argsort``,
   ``searchsorted``, slot writes), which ``DTensor`` has no sharding rule
   for, runs on each rank's replicated expert ids.
+
+Under a profiler the MoE's parts are the spans ``moe.route``,
+``moe.dispatch_combine`` (the slot maps and the dispatch gather; then the
+weighted combine) and ``moe.experts`` (``repro_torch.spans``).
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ from torch.autograd.function import once_differentiable
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import constrain, is_dtensor
 from repro_torch.sharding.policy import ParamDef, batch_pspec
+from repro_torch.spans import span
 
 
 def schema_ffn(cfg: ModelConfig) -> dict:
@@ -204,7 +209,8 @@ def moe(p: dict, cfg: ModelConfig, x: torch.Tensor):
         # dispatch crosses only the ep axis (the reference's constraint)
         x = constrain(x, (batch_pspec(cfg.mesh_axes), None, None))
     xt = x.reshape(N, d)
-    r = route(p["router"], cfg, xt)
+    with span("moe.route"):
+        r = route(p["router"], cfg, xt)
     C = r.capacity
 
     # Switch aux load-balance loss: E * sum_e fraction_tokens_e * mean_prob_e
@@ -212,22 +218,25 @@ def moe(p: dict, cfg: ModelConfig, x: torch.Tensor):
     ce = torch.mean(F.one_hot(r.topi[:, 0], E).to(torch.float32), dim=0)
     aux = E * torch.sum(me * ce)
 
-    # who fills each slot: a token (N: none) and its entry (N*k: none);
-    # the drop slot E*C collects every dropped entry and is cut off
-    slot = r.slot.reshape(N * k)
-    dev = x.device
-    entry = torch.full((E * C + 1,), N * k, dtype=torch.int64, device=dev)
-    entry[slot] = torch.arange(N * k, dtype=torch.int64, device=dev)
-    entry = entry[:-1]
-    tok_of_slot = torch.where(entry < N * k,
-                              torch.div(entry, k, rounding_mode="floor"), N)
-    # each token's slots in ascending order, the drop slot last
-    uses = torch.sort(r.slot, dim=1).values
-
-    ein = _Gather.apply(xt, tok_of_slot, uses).reshape(E, C, d)
-    eout = _experts(p, ein)                                 # (E, C, d)
-    w = r.topw.reshape(N * k, 1).to(x.dtype)
-    w_of_slot = _Gather.apply(w, entry, slot.reshape(N * k, 1))
-    contrib = eout.reshape(E * C, d) * w_of_slot
-    y = _Sum.apply(contrib, uses, tok_of_slot)
+    with span("moe.dispatch_combine"):
+        # who fills each slot: a token (N: none) and its entry (N*k: none);
+        # the drop slot E*C collects every dropped entry and is cut off
+        slot = r.slot.reshape(N * k)
+        dev = x.device
+        entry = torch.full((E * C + 1,), N * k, dtype=torch.int64,
+                           device=dev)
+        entry[slot] = torch.arange(N * k, dtype=torch.int64, device=dev)
+        entry = entry[:-1]
+        tok_of_slot = torch.where(
+            entry < N * k, torch.div(entry, k, rounding_mode="floor"), N)
+        # each token's slots in ascending order, the drop slot last
+        uses = torch.sort(r.slot, dim=1).values
+        ein = _Gather.apply(xt, tok_of_slot, uses).reshape(E, C, d)
+    with span("moe.experts"):
+        eout = _experts(p, ein)                             # (E, C, d)
+    with span("moe.dispatch_combine"):
+        w = r.topw.reshape(N * k, 1).to(x.dtype)
+        w_of_slot = _Gather.apply(w, entry, slot.reshape(N * k, 1))
+        contrib = eout.reshape(E * C, d) * w_of_slot
+        y = _Sum.apply(contrib, uses, tok_of_slot)
     return y.reshape(B, S, d), aux.to(torch.float32)

@@ -41,6 +41,7 @@ from repro_torch.models.common import (causal_mask, embed, norm_apply, remat,
                                        rope, schema_embed, schema_norm,
                                        seq_shard, split_last, unembed)
 from repro_torch.sharding.policy import DTYPES, ParamDef, stack
+from repro_torch.spans import span
 
 
 def require_decode(cfg: ModelConfig) -> None:
@@ -88,24 +89,30 @@ def block_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor,
               positions: torch.Tensor, window: int):
     """-> (x, the MoE aux of this block: 0.0 for a dense MLP)."""
     h = norm_apply(p["ln1"], x, cfg.norm)
-    x = x + attn.attention(p["attn"], cfg, h, positions=positions,
-                           window=window)
+    with span("block.attention"):
+        x = x + attn.attention(p["attn"], cfg, h, positions=positions,
+                               window=window)
     h = norm_apply(p["ln2"], x, cfg.norm)
-    if _is_moe(cfg):
-        y, aux = ffn_mod.moe(p["mlp"], cfg, h)
-    else:
-        y = ffn_mod.ffn(p["mlp"], cfg, h)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    with span("block.mlp"):
+        if _is_moe(cfg):
+            y, aux = ffn_mod.moe(p["mlp"], cfg, h)
+        else:
+            y = ffn_mod.ffn(p["mlp"], cfg, h)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + y, aux
 
 
 def block_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
                  cache: attn.KVCache, pos: int, window: int):
     h = norm_apply(p["ln1"], x, cfg.norm)
-    a, cache = attn.decode_attention(p["attn"], cfg, h, cache, pos, window)
+    with span("block.attention"):
+        a, cache = attn.decode_attention(p["attn"], cfg, h, cache, pos,
+                                         window)
     x = x + a
     h = norm_apply(p["ln2"], x, cfg.norm)
-    return x + _mlp(p["mlp"], cfg, h), cache
+    with span("block.mlp"):
+        y = _mlp(p["mlp"], cfg, h)
+    return x + y, cache
 
 
 # ---------------------------------------------------------------------------
@@ -162,20 +169,23 @@ def block_fwd_cache(p: dict, cfg: ModelConfig, x: torch.Tensor,
     h = norm_apply(p["ln1"], x, cfg.norm)
     B, S, _ = h.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = split_last(h @ p["attn"]["wq"], (H, hd))
-    k = split_last(h @ p["attn"]["wk"], (K, hd))
-    v = split_last(h @ p["attn"]["wv"], (K, hd))
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    if attn.use_kernels(cfg, x, q, k, v):
-        o = kops.flash_attention(q, k, v, causal=True, window=window)
-    else:
-        o = attn._sdpa(q, attn._gqa_expand(k, H, K),
-                       attn._gqa_expand(v, H, K),
-                       causal_mask(S, window, device=x.device))
-    x = x + o.reshape(B, S, H * hd) @ p["attn"]["wo"]
+    with span("block.attention"):
+        q = split_last(h @ p["attn"]["wq"], (H, hd))
+        k = split_last(h @ p["attn"]["wk"], (K, hd))
+        v = split_last(h @ p["attn"]["wv"], (K, hd))
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        if attn.use_kernels(cfg, x, q, k, v):
+            o = kops.flash_attention(q, k, v, causal=True, window=window)
+        else:
+            o = attn._sdpa(q, attn._gqa_expand(k, H, K),
+                           attn._gqa_expand(v, H, K),
+                           causal_mask(S, window, device=x.device))
+        x = x + o.reshape(B, S, H * hd) @ p["attn"]["wo"]
     h = norm_apply(p["ln2"], x, cfg.norm)
-    return x + _mlp(p["mlp"], cfg, h), (k, v)
+    with span("block.mlp"):
+        y = _mlp(p["mlp"], cfg, h)
+    return x + y, (k, v)
 
 
 def decoder_prefill_with_cache(params: dict, cfg: ModelConfig,

@@ -15,12 +15,14 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import model as M
 from repro_torch.sharding.policy import batch_pspec, mesh_sizes
+from repro_torch.spans import span
 from repro_torch.tree import tree_map
 
 
 def prefill_step(params, cfg: ModelConfig, inputs: dict) -> torch.Tensor:
-    lg, _ = M.logits(params, cfg, inputs)
-    return lg[:, -1]
+    with span("serve.prefill_step"):
+        lg, _ = M.logits(params, cfg, inputs)
+        return lg[:, -1]
 
 
 def make_decode_step(cfg: ModelConfig, window: int = 0):

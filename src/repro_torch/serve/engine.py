@@ -14,7 +14,9 @@ The engine owns its cache and updates it in place; the prefill returns a
 cache of its own, whose rows are copied into the slot.  Besides the
 reference's ``EngineStats`` it keeps host-clock times: ``prefill_ms`` per
 prefill and ``step_ms`` per decode step, each ending in the one
-device->host copy of the tokens it produced.
+device->host copy of the tokens it produced.  They are read from the same
+clock as the spans ``engine.fill_slot`` and ``engine.dispatch``
+(``repro_torch.spans``), which a profiler sees beside ``engine.step``.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, spans
 from repro_torch.analysis.guards import to_host
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
@@ -92,32 +94,33 @@ class Engine:
 
     @torch.no_grad()
     def _fill_slot(self, i: int, req: Request):
-        t0 = time.perf_counter()
-        P = self.prefill_len
-        prompt = np.asarray(req.prompt, np.int32)[:P]
-        if len(prompt) < P:
-            prompt = np.concatenate(
-                [prompt, np.full(P - len(prompt), prompt[-1], np.int32)])
-        tokens = torch.as_tensor(prompt, device=self.device)[None, :]
-        logits, cache1 = decoder_prefill_with_cache(self.params, self.cfg,
-                                                    tokens, self.n_slots)
-        # graft the prefilled rows into slot i of the shared cache (rows
-        # beyond P arrive zeroed from the prefill pad)
-        self.cache.k[:, i] = cache1.k[:, 0]
-        self.cache.v[:, i] = cache1.v[:, 0]
-        # slot_pos is shared across the batch: take the union so slots that
-        # already decoded past P keep their rows visible.  A slot refilled
-        # mid-stream attends zeroed K rows between P and the global
-        # position: the reference's documented approximation, kept.
-        torch.maximum(self.cache.slot_pos, cache1.slot_pos,
-                      out=self.cache.slot_pos)
-        self.slots[i] = req
-        self.pos[i] = P
-        self.cur[i] = int(to_host(torch.argmax(logits[0])))
-        req.generated.append(int(self.cur[i]))
-        self.stats.tokens_out += 1      # the prefill emits the first token
-        self.stats.prefills += 1
-        self.prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        with spans.timed("engine.fill_slot") as t:
+            P = self.prefill_len
+            prompt = np.asarray(req.prompt, np.int32)[:P]
+            if len(prompt) < P:
+                prompt = np.concatenate(
+                    [prompt, np.full(P - len(prompt), prompt[-1], np.int32)])
+            tokens = torch.as_tensor(prompt, device=self.device)[None, :]
+            logits, cache1 = decoder_prefill_with_cache(
+                self.params, self.cfg, tokens, self.n_slots)
+            # graft the prefilled rows into slot i of the shared cache (rows
+            # beyond P arrive zeroed from the prefill pad)
+            self.cache.k[:, i] = cache1.k[:, 0]
+            self.cache.v[:, i] = cache1.v[:, 0]
+            # slot_pos is shared across the batch: take the union so slots
+            # that already decoded past P keep their rows visible.  A slot
+            # refilled mid-stream attends zeroed K rows between P and the
+            # global position: the reference's documented approximation,
+            # kept.
+            torch.maximum(self.cache.slot_pos, cache1.slot_pos,
+                          out=self.cache.slot_pos)
+            self.slots[i] = req
+            self.pos[i] = P
+            self.cur[i] = int(to_host(torch.argmax(logits[0])))
+            req.generated.append(int(self.cur[i]))
+            self.stats.tokens_out += 1  # the prefill emits the first token
+            self.stats.prefills += 1
+        self.prefill_ms.append((t.end_ns - t.start_ns) / 1e6)
 
     def _retire(self, i: int):
         req = self.slots[i]
@@ -128,32 +131,38 @@ class Engine:
     @torch.no_grad()
     def step(self):
         """One engine tick: refill free slots, then one decode step."""
-        for i in range(self.batch):
-            if self.slots[i] is None and self.queue:
-                self._fill_slot(i, self.queue.pop(0))
-        active = [i for i in range(self.batch) if self.slots[i] is not None]
-        if not active:
-            return False
-        # lockstep decode: positions differ per slot; cache layout uses the
-        # max position for slot_pos (causal mask handles shorter rows)
-        t0 = time.perf_counter()
-        pos = int(self.pos.max())
-        tok = torch.as_tensor(self.cur, device=self.device)
-        nxt, self.cache = self._decode(self.params, tok, self.cache, pos)
-        nxt_np = to_host(nxt)
-        self.step_ms.append((time.perf_counter() - t0) * 1e3)
-        self.stats.decode_steps += 1
-        for i in active:
-            self.cur[i] = nxt_np[i]
-            self.pos[i] += 1
-            req = self.slots[i]
-            req.generated.append(int(nxt_np[i]))
-            self.stats.tokens_out += 1
-            hit_eos = self.eos_id is not None and int(nxt_np[i]) == self.eos_id
-            if len(req.generated) >= req.max_new or hit_eos or \
-                    self.pos[i] >= self.n_slots - 1:
-                self._retire(i)
-        return True
+        with spans.span("engine.step"):
+            for i in range(self.batch):
+                if self.slots[i] is None and self.queue:
+                    self._fill_slot(i, self.queue.pop(0))
+            active = [i for i in range(self.batch)
+                      if self.slots[i] is not None]
+            if not active:
+                return False
+            # lockstep decode: positions differ per slot; cache layout uses
+            # the max position for slot_pos (causal mask handles shorter
+            # rows).  engine.dispatch ends once every launch of the step is
+            # enqueued, before the copy of its tokens waits for them.
+            with spans.timed("engine.dispatch") as t:
+                pos = int(self.pos.max())
+                tok = torch.as_tensor(self.cur, device=self.device)
+                nxt, self.cache = self._decode(self.params, tok, self.cache,
+                                               pos)
+            nxt_np = to_host(nxt)
+            self.step_ms.append((time.time_ns() - t.start_ns) / 1e6)
+            self.stats.decode_steps += 1
+            for i in active:
+                self.cur[i] = nxt_np[i]
+                self.pos[i] += 1
+                req = self.slots[i]
+                req.generated.append(int(nxt_np[i]))
+                self.stats.tokens_out += 1
+                hit_eos = self.eos_id is not None and \
+                    int(nxt_np[i]) == self.eos_id
+                if len(req.generated) >= req.max_new or hit_eos or \
+                        self.pos[i] >= self.n_slots - 1:
+                    self._retire(i)
+            return True
 
     def run(self, max_ticks: int = 10_000) -> EngineStats:
         for _ in range(max_ticks):
