@@ -5,9 +5,12 @@
 //
 // q (B, H, hd), k/v (B, W, K, hd) in the cache's own layout, fp32 or bf16;
 // slot_pos (W,) int32, the position written in each slot (-1 = empty); pos
-// the current position, a host int; out (B, H, hd) in q's type.  A slot is
-// valid when slot_pos >= 0, slot_pos <= pos and, with a window,
-// slot_pos > pos - window.
+// the current position, a host int, or read from device memory at pos_at
+// where that pointer is not null (a CUDA graph of the serving engine's
+// decode step replays one launch at every position: each block reads it
+// once at its start, and nothing after that differs); out (B, H, hd) in
+// q's type.  A slot is valid when slot_pos >= 0, slot_pos <= pos and, with
+// a window, slot_pos > pos - window.
 //
 // Replaces: repro/kernels/decode_attention.py::_kernel (pallas_call in
 // decode_attention).  The port's one-token decode
@@ -170,8 +173,10 @@ __global__ void __launch_bounds__(THREADS)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int* __restrict__ slot_pos,
               T* __restrict__ out, int H, int K, int W, int hd, int lpr,
-              int pos, int window, float scale) {
+              int pos, const int* __restrict__ pos_at, int window,
+              float scale) {
   constexpr int VEC = 16 / sizeof(T);   // head dims per 16-byte load
+  if (pos_at != nullptr) pos = __ldg(pos_at);
   // slots in flight a sub-warp: as many as keep a 4-warp block within
   // 128 registers a thread, so that four blocks fit an SM
   constexpr int U = G == 1 ? 8 : G <= 4 ? 4 : 2;
@@ -380,8 +385,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int G>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* slot_pos, void* out, int B, int H, int K, int W,
-                   int hd, int pos, int window, float scale, int cluster,
-                   cudaStream_t stream) {
+                   int hd, int pos, const int* pos_at, int window,
+                   float scale, int cluster, cudaStream_t stream) {
   constexpr int VEC = 16 / sizeof(T);
   // once per instance: room for the largest cluster's partials
   static const cudaError_t smem_attr = cudaFuncSetAttribute(
@@ -405,7 +410,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, decode_kernel<T, G>, static_cast<const T*>(q),
       static_cast<const T*>(k), static_cast<const T*>(v), slot_pos,
-      static_cast<T*>(out), H, K, W, hd, lpr, pos, window, scale);
+      static_cast<T*>(out), H, K, W, hd, lpr, pos, pos_at, window, scale);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
@@ -551,8 +556,10 @@ decode_kernel_grouped(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ v,
                       const int* __restrict__ slot_pos,
                       __nv_bfloat16* __restrict__ out, int H, int K, int W,
-                      int pos, int window, float scale_log2) {
+                      int pos, const int* __restrict__ pos_at, int window,
+                      float scale_log2) {
   static_assert(HD % 16 == 0 && HD <= HD_MAX, "hd: a multiple of 16");
+  if (pos_at != nullptr) pos = __ldg(pos_at);
   constexpr int LD = HD + 8;            // shared row stride, bf16
   constexpr uint32_t ROW = LD * 2;      // bytes
   constexpr uint32_t TILE = TS * ROW;   // a K or a V tile
@@ -774,8 +781,9 @@ decode_kernel_grouped(const __nv_bfloat16* __restrict__ q,
 template <int HD>
 cudaError_t launch_grouped(const void* q, const void* k, const void* v,
                            const int* slot_pos, void* out, int B, int H,
-                           int K, int W, int pos, int window, float scale,
-                           int cluster, cudaStream_t stream) {
+                           int K, int W, int pos, const int* pos_at,
+                           int window, float scale, int cluster,
+                           cudaStream_t stream) {
   constexpr size_t ring = (size_t)GWARPS * NS * 2 * TS * (HD + 8) * 2;
   // once per instance: room for the largest cluster's slices
   static const cudaError_t smem_attr = cudaFuncSetAttribute(
@@ -802,7 +810,7 @@ cudaError_t launch_grouped(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), slot_pos,
-      static_cast<__nv_bfloat16*>(out), H, K, W, pos, window,
+      static_cast<__nv_bfloat16*>(out), H, K, W, pos, pos_at, window,
       scale * 1.4426950408889634f);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
@@ -810,12 +818,12 @@ cudaError_t launch_grouped(const void* q, const void* k, const void* v,
 template <typename T>
 cudaError_t launch_g(int G, const void* q, const void* k, const void* v,
                      const int* slot_pos, void* out, int B, int H, int K,
-                     int W, int hd, int pos, int window, float scale,
-                     int cluster, cudaStream_t s) {
+                     int W, int hd, int pos, const int* pos_at, int window,
+                     float scale, int cluster, cudaStream_t s) {
 #define DECODE_G(n)                                                        \
   case n:                                                                  \
     return launch<T, n>(q, k, v, slot_pos, out, B, H, K, W, hd, pos,       \
-                        window, scale, cluster, s);
+                        pos_at, window, scale, cluster, s);
   switch (G) {
     DECODE_G(1) DECODE_G(2) DECODE_G(3) DECODE_G(4)
     DECODE_G(5) DECODE_G(6) DECODE_G(7) DECODE_G(8)
@@ -831,13 +839,14 @@ extern "C" int decode_attention_max_group() { return G_MAX; }
 
 // dtype 0 = fp32, 1 = bf16 (q, the cache and out alike); hd a multiple of
 // 4 (fp32) or 8 (bf16) up to 128, H / K at most 8; `cluster` blocks split
-// the slots of each (b, kv head), 1 to 8.  Launches on `stream`; returns
-// the launch's error code (0 = launched).
+// the slots of each (b, kv head), 1 to 8.  `pos_at`: null, or one int32 in
+// device memory that takes the place of `pos`.  Launches on `stream`;
+// returns the launch's error code (0 = launched).
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 const int* slot_pos, void* out, int B, int H,
-                                int K, int W, int hd, int pos, int window,
-                                float scale, int cluster, int dtype,
-                                void* stream) {
+                                int K, int W, int hd, int pos,
+                                const int* pos_at, int window, float scale,
+                                int cluster, int dtype, void* stream) {
   if (B <= 0 || H <= 0) return 0;
   const int vec = dtype == 1 ? 8 : 4;
   if (K <= 0 || H % K != 0 || H / K > G_MAX || W <= 0 || hd <= 0 ||
@@ -848,11 +857,11 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
   const int G = H / K;
   if (dtype == 0)
     return (int)launch_g<float>(G, q, k, v, slot_pos, out, B, H, K, W, hd,
-                                pos, window, scale, cluster, s);
+                                pos, pos_at, window, scale, cluster, s);
   if (dtype == 1)
     return (int)launch_g<__nv_bfloat16>(G, q, k, v, slot_pos, out, B, H, K,
-                                        W, hd, pos, window, scale, cluster,
-                                        s);
+                                        W, hd, pos, pos_at, window, scale,
+                                        cluster, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -862,9 +871,9 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
 extern "C" int decode_attention_grouped(const void* q, const void* k,
                                         const void* v, const int* slot_pos,
                                         void* out, int B, int H, int K, int W,
-                                        int hd, int pos, int window,
-                                        float scale, int cluster, int dtype,
-                                        void* stream) {
+                                        int hd, int pos, const int* pos_at,
+                                        int window, float scale, int cluster,
+                                        int dtype, void* stream) {
   if (B <= 0 || H <= 0) return 0;
   if (dtype != 1 || K <= 0 || H % K != 0 || H / K > G_MAX || W <= 0 ||
       hd <= 0 || hd > HD_MAX || hd % 16 != 0 || window < 0 || B > 65535 ||
@@ -874,7 +883,7 @@ extern "C" int decode_attention_grouped(const void* q, const void* k,
 #define DECODE_HD(n)                                                       \
   case n:                                                                  \
     return (int)launch_grouped<n>(q, k, v, slot_pos, out, B, H, K, W, pos, \
-                                  window, scale, cluster, s);
+                                  pos_at, window, scale, cluster, s);
   switch (hd) {
     DECODE_HD(16) DECODE_HD(32) DECODE_HD(48) DECODE_HD(64)
     DECODE_HD(80) DECODE_HD(96) DECODE_HD(112) DECODE_HD(128)

@@ -10,7 +10,10 @@ head (q head ``h`` reads kv head ``h // (H // K)``), so each K/V row is
 read once, with no transpose of the cache and no GQA copy.  The cluster's
 blocks split the slots; ``launch`` picks their number so that the grid
 fills the card (the slots route) or stays within one block an SM (the
-grouped route).  ``pos`` is a host int, as the serving engine holds it.
+grouped route).  ``pos`` is a host int, or a one-element int32 tensor on
+the launch's device whose address the kernel reads it from (null for an
+int): the serving engine's CUDA graph of a decode step replays one launch
+at every position.
 Two routes, picked by ``route`` from (G, hd, dtype) alone:
 
 - ``"grouped"``: bf16 with G = H / K >= 4 q heads a kv head and hd a
@@ -73,7 +76,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a library built from
     ``csrc/decode_attention.cu``."""
     for fn in (lib.decode_attention, lib.decode_attention_grouped):
-        fn.argtypes = [_P] * 5 + [_I] * 7 + [_F, _I, _I, _P]
+        fn.argtypes = [_P] * 5 + [_I] * 6 + [_P, _I, _F, _I, _I, _P]
         fn.restype = _I
     lib.decode_attention_max_hd.restype = _I
     lib.decode_attention_max_group.restype = _I
@@ -82,13 +85,14 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def launch(q, k, v, slot_pos, pos: int, *, window: int = 0):
+def launch(q, k, v, slot_pos, pos, *, window: int = 0):
     """One launch on the current stream.  q (B, H, hd), k/v (B, W, K, hd)
     with K dividing H and H // K at most 8, one dtype (fp32 or bf16) with
     hd a multiple of 4 (fp32) or 8 (bf16) up to 128; slot_pos (W,) int32;
-    all contiguous CUDA tensors on one device.  Returns (B, H, hd) in q's
-    dtype.  The route is ``route``'s.  Raises where the card refuses the
-    cluster launch."""
+    all contiguous CUDA tensors on one device; ``pos`` a host int or a (1,)
+    int32 tensor on that device, read by the kernel.  Returns (B, H, hd) in
+    q's dtype.  The route is ``route``'s.  Raises where the card refuses
+    the cluster launch."""
     if q.dim() != 3 or k.dim() != 4:
         raise ValueError(f"decode_attention: q must be (B, H, hd) and k "
                          f"(B, W, K, hd), got {tuple(q.shape)} and "
@@ -109,6 +113,11 @@ def launch(q, k, v, slot_pos, pos: int, *, window: int = 0):
     _launch.check("k", k, (B, W, K, hd), q.dtype, dev)
     _launch.check("v", v, (B, W, K, hd), q.dtype, dev)
     _launch.check("slot_pos", slot_pos, (W,), torch.int32, dev)
+    if torch.is_tensor(pos):
+        _launch.check("pos", pos, (1,), torch.int32, dev)
+        pos_int, pos_at = 0, pos.data_ptr()
+    else:
+        pos_int, pos_at = int(pos), None
     lib = _lib()
     if hd > lib.decode_attention_max_hd():
         raise ValueError(f"decode_attention: head dim {hd} exceeds the "
@@ -135,7 +144,7 @@ def launch(q, k, v, slot_pos, pos: int, *, window: int = 0):
     with torch.cuda.device(dev):
         rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), slot_pos.data_ptr(),
-            out.data_ptr(), B, H, K, W, hd, int(pos), int(window),
+            out.data_ptr(), B, H, K, W, hd, pos_int, pos_at, int(window),
             1.0 / math.sqrt(hd), cluster, DTYPES[q.dtype],
             torch.cuda.current_stream().cuda_stream)
     _launch.raise_on_error(rc, "decode_attention launch",

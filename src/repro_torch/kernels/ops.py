@@ -332,10 +332,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     return out
 
 
-def decode_attention(q, k, v, slot_pos, pos: int, *, window: int = 0):
+def decode_attention(q, k, v, slot_pos, pos, *, window: int = 0):
     """One-token cache attention: q (B, H, hd), k/v (B, W, K, hd) [the
-    cache's layout], slot_pos (W,) int32, pos a host int -> (B, H, hd).
-    One decode-attention launch on CUDA; on the CPU
+    cache's layout], slot_pos (W,) int32, pos a host int or a (1,) int32
+    tensor on q's device -> (B, H, hd).  One decode-attention launch on
+    CUDA, which reads a tensor ``pos`` from device memory; on the CPU
     ``ref.decode_attention_cache`` (``decode_attention_ref`` over (B*H, W,
     hd) rows)."""
     H = q.shape[1]
@@ -348,7 +349,7 @@ def decode_attention(q, k, v, slot_pos, pos: int, *, window: int = 0):
     _refuse_grad("decode_attention", q, k, v)
     from repro_torch.kernels import decode_attention as da
     out = da.launch(q.contiguous(), k.contiguous(), v.contiguous(),
-                    slot_pos.to(torch.int32).contiguous(), int(pos),
+                    slot_pos.to(torch.int32).contiguous(), pos,
                     window=window)
     LAUNCHES["decode_attention"] += 1
     return out

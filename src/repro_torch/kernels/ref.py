@@ -229,7 +229,9 @@ def flash_attention_model(q, k, v, *, causal: bool = True, window: int = 0):
 
 def decode_attention_cache(q, k, v, slot_pos, pos, *, window: int = 0):
     """``decode_attention_ref`` on the cache's layout: q (B, H, hd), k/v
-    (B, W, K, hd) with K dividing H -> (B, H, hd)."""
+    (B, W, K, hd) with K dividing H -> (B, H, hd); ``pos`` a host int or a
+    one-element tensor, read as ``int(pos)``."""
+    pos = int(pos)
     B, H, hd = q.shape
     W = k.shape[1]
     kf, vf = (expand_heads(t, H).transpose(1, 2).reshape(B * H, W, hd)

@@ -203,26 +203,36 @@ def init_cache(cfg: ModelConfig, batch: int, n_slots: int,
 
 
 def decode_attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                     cache: KVCache, pos: int, window: int = 0):
-    """One-token decode.  x: (B, 1, d); pos: the current position, an int.
-    Writes the new K/V rows and ``slot_pos`` into ``cache`` in place and
-    returns (out (B, 1, d), cache)."""
+                     cache: KVCache, pos, window: int = 0):
+    """One-token decode.  x: (B, 1, d); pos: the current position, a host
+    int or a (1,) int32 tensor on x's device.  Writes the new K/V rows and
+    ``slot_pos`` into ``cache`` in place and returns (out (B, 1, d),
+    cache).  A tensor ``pos`` is never read on the host: RoPE broadcasts
+    it, the slot is computed and written on the device and the kernel
+    reads it, so a CUDA graph of the step replays at any position."""
     B = x.shape[0]
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     W = cache.k.shape[1]
-    pos = int(pos)
+    on_device = torch.is_tensor(pos)
     q = _split_heads(x @ p["wq"], H, hd)
     k_new = _split_heads(x @ p["wk"], K, hd)
     v_new = _split_heads(x @ p["wv"], K, hd)
-    posb = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    posb = (pos.view(1, 1).expand(B, 1) if on_device else
+            torch.full((B, 1), pos, dtype=torch.int32, device=x.device))
     q = rope(q, posb, cfg.rope_theta)
     k_new = rope(k_new, posb, cfg.rope_theta)
 
     # dynamic_update_slice clamps the start so the update fits
-    slot = min(pos % W if window else pos, W - 1)
-    cache.k[:, slot] = k_new[:, 0]
-    cache.v[:, slot] = v_new[:, 0]
-    cache.slot_pos[slot] = pos
+    if on_device:
+        slot = torch.clamp(pos % W if window else pos, max=W - 1).long()
+        cache.k.index_copy_(1, slot, k_new.to(cache.k.dtype))
+        cache.v.index_copy_(1, slot, v_new.to(cache.v.dtype))
+        cache.slot_pos.index_copy_(0, slot, pos)
+    else:
+        slot = min(pos % W if window else pos, W - 1)
+        cache.k[:, slot] = k_new[:, 0]
+        cache.v[:, slot] = v_new[:, 0]
+        cache.slot_pos[slot] = pos
     k, v, slot_pos = cache
 
     if use_kernels(cfg, x, q, k, v):

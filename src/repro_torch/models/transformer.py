@@ -103,7 +103,9 @@ def block_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def block_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                 cache: attn.KVCache, pos: int, window: int):
+                 cache: attn.KVCache, pos, window: int):
+    """One block's decode step; ``pos`` as ``attn.decode_attention``
+    takes it (a host int, or a (1,) int32 tensor on x's device)."""
     h = norm_apply(p["ln1"], x, cfg.norm)
     with span("block.attention"):
         a, cache = attn.decode_attention(p["attn"], cfg, h, cache, pos,
@@ -230,12 +232,12 @@ def decoder_init_cache(cfg: ModelConfig, batch: int, n_slots: int, dtype,
 
 
 def decoder_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
-                   cache: attn.KVCache, pos: int, window: int):
+                   cache: attn.KVCache, pos, window: int):
     """token: (B,) int -> (logits (B, vocab), cache), the cache updated in
-    place (one new row per layer at ``pos``)."""
+    place (one new row per layer at ``pos``: a host int, or a (1,) int32
+    tensor on the device, which the step then never reads on the host)."""
     require_decode(cfg)
     x = embed(params["embed"], token[:, None]).to(DTYPES[cfg.dtype])
-    pos = int(pos)
     L = cfg.n_layers
     for lp, k, v, sp in zip(_layers(params["blocks"], L), cache.k.unbind(0),
                             cache.v.unbind(0), cache.slot_pos.unbind(0)):

@@ -17,6 +17,22 @@ prefill and ``step_ms`` per decode step, each ending in the one
 device->host copy of the tokens it produced.  They are read from the same
 clock as the spans ``engine.fill_slot`` and ``engine.dispatch``
 (``repro_torch.spans``), which a profiler sees beside ``engine.step``.
+
+On a CUDA device a decode step is one CUDA graph.  The step's inputs live
+in one static int32 buffer on the device, the B current tokens and then
+the lockstep position, filled each step from one pinned host buffer by a
+single non-blocking copy; the model reads the position from it
+(``attention.decode_attention`` with a tensor ``pos``).  The first decode
+step runs eagerly, which warms cuBLAS, the kernels' lazy loads and the
+allocator; the second captures the step (``engine.capture``) and every
+step from then on replays it, so the host enqueues one copy and one graph
+launch where it enqueued every layer's launches.  The graph holds the
+addresses of the parameters and of the cache, which the engine updates in
+place (refills included), and of its own output.  ``captures`` and
+``replays`` count the graph's captures and launches; each replay adds the
+captured step's kernel launches to ``kernels.ops.LAUNCHES``, which the
+capture itself, running nothing, leaves as it was.  On the CPU the
+engine steps eagerly with a host position, as the reference.
 """
 from __future__ import annotations
 
@@ -30,6 +46,7 @@ import torch
 from repro_torch import resolve_device, spans
 from repro_torch.analysis.guards import to_host
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
 from repro_torch.models import model as M
 from repro_torch.models.transformer import decoder_prefill_with_cache
 from repro_torch.serve.decode import make_decode_step
@@ -88,6 +105,14 @@ class Engine:
         self.prefill_ms: List[float] = []
         self.step_ms: List[float] = []
         self._decode = make_decode_step(cfg, 0)
+        self.captures = self.replays = 0
+        self._graph = None
+        self._graphed = self.device.type == "cuda"
+        if self._graphed:     # the step's inputs: B tokens, then the position
+            self._inputs_host = torch.empty(batch + 1, dtype=torch.int32,
+                                            pin_memory=True)
+            self._inputs = torch.empty(batch + 1, dtype=torch.int32,
+                                       device=self.device)
 
     def submit(self, req: Request):
         self.queue.append(req)
@@ -145,9 +170,12 @@ class Engine:
             # enqueued, before the copy of its tokens waits for them.
             with spans.timed("engine.dispatch") as t:
                 pos = int(self.pos.max())
-                tok = torch.as_tensor(self.cur, device=self.device)
-                nxt, self.cache = self._decode(self.params, tok, self.cache,
-                                               pos)
+                if self._graphed:
+                    nxt = self._graph_step(pos)
+                else:
+                    tok = torch.as_tensor(self.cur, device=self.device)
+                    nxt, self.cache = self._decode(self.params, tok,
+                                                   self.cache, pos)
             nxt_np = to_host(nxt)
             self.step_ms.append((time.time_ns() - t.start_ns) / 1e6)
             self.stats.decode_steps += 1
@@ -163,6 +191,43 @@ class Engine:
                         self.pos[i] >= self.n_slots - 1:
                     self._retire(i)
             return True
+
+    def _graph_step(self, pos: int) -> torch.Tensor:
+        """Enqueue a decode step on the card: fill the static inputs, then
+        run the step eagerly (the first), capture and replay it (the
+        second) or replay it; returns the step's tokens on the device.
+        The previous step's copy has ended: its tokens reached the host."""
+        host = self._inputs_host.numpy()
+        host[:-1] = self.cur
+        host[-1] = pos
+        self._inputs.copy_(self._inputs_host, non_blocking=True)
+        tok, pos_d = self._inputs[:-1], self._inputs[-1:]
+        if self._graph is None:
+            if self.stats.decode_steps == 0:
+                return self._decode(self.params, tok, self.cache, pos_d)[0]
+            self._capture(tok, pos_d)
+        self._graph.replay()
+        self.replays += 1
+        for name, n in self._graph_launches.items():
+            kops.LAUNCHES[name] += n
+        return self._next
+
+    def _capture(self, tok: torch.Tensor, pos: torch.Tensor) -> None:
+        """Capture one decode step into ``self._graph``, on a side stream
+        (``torch.cuda.graph``); it runs nothing."""
+        before = dict(kops.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        with spans.span("engine.capture"), torch.cuda.graph(graph):
+            nxt, cache = self._decode(self.params, tok, self.cache, pos)
+        if any(a is not b for a, b in zip(cache, self.cache)):
+            raise RuntimeError(
+                f"{self.cfg.name}: the decode step returned new cache "
+                f"tensors; a CUDA graph replays into the ones it captured")
+        self._graph_launches = {k: n - before[k]
+                                for k, n in kops.LAUNCHES.items()}
+        kops.LAUNCHES.update(before)
+        self._graph, self._next = graph, nxt
+        self.captures += 1
 
     def run(self, max_ticks: int = 10_000) -> EngineStats:
         for _ in range(max_ticks):

@@ -1255,6 +1255,95 @@ def test_decode_attention_refuses_what_it_cannot_take_on_card():
         ops.decode_attention(q, kc, vc, sp, 15)
 
 
+# (dtype, (H, K, hd)) of both routes: the slots route at G 1 and 2 in fp32
+# and bf16, the grouped route at G 4 and 8
+_POSITION_SETS = ([(d, h) for d in (torch.float32, torch.bfloat16)
+                   for h in ((32, 32, 80), (16, 8, 128))]
+                  + [(torch.bfloat16, h) for h in ((32, 8, 128),
+                                                   (32, 4, 128))])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,heads", _POSITION_SETS,
+                         ids=[f"{str(d)[6:]}-{h}" for d, h in
+                              _POSITION_SETS])
+def test_decode_attention_position_on_device_equals_int_on_card(dtype,
+                                                                 heads):
+    """The kernel reading the position from device memory gives the bits
+    of the same launch with the host int, on a prefix cache and a wrapped
+    ring, with and without a window."""
+    from repro_torch.kernels import decode_attention as da
+    dev = _card()
+    H, K, hd = heads
+    assert da.route(H // K, hd, dtype) == ("grouped" if H // K >= 4
+                                           else "slots")
+    rng = np.random.RandomState(H + K + hd)
+    B, W = 8, 1024
+    q, kc, vc = _attn_inputs(rng, dev, dtype, (B, H, hd), (B, W, K, hd),
+                             (B, W, K, hd))
+    for sp, pos in ((_prefix_slots(W, 700), 700), (_prefix_slots(W, 0), 0),
+                    (_ring_slots(W, 2500), 2499)):
+        sp = sp.to(dev)
+        at = torch.tensor([pos], dtype=torch.int32, device=dev)
+        for window in (0, 48):
+            want = ops.decode_attention(q, kc, vc, sp, pos, window=window)
+            got = ops.decode_attention(q, kc, vc, sp, at, window=window)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (pos, window)
+            assert bool(want.abs().sum() > 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "qwen3-moe-30b-a3b"])
+def test_engine_graph_steps_equal_eager_steps_on_card(arch, dtype):
+    """Twelve engine steps on the card: the first eager, the second
+    captured and replayed, the rest replayed; a session retires after the
+    fourth and the queue refills its slot before the fifth.  Each step's
+    tokens and the cache after it equal an eager ``make_decode_step`` at
+    the host position on a clone of the cache the step started from (the
+    step's refills made first).  One capture, a replay every step but the
+    first, and ``ops.LAUNCHES`` counts every replay's decode launches."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.serve import build_params
+    from repro_torch.models.attention import KVCache
+    from repro_torch.serve.decode import make_decode_step
+    from repro_torch.serve.engine import Engine, Request
+    dev = _card()
+    cfg = get_smoke(arch).with_(use_flash_kernel=True, dtype=dtype)
+    params = build_params(cfg, seed=7, device=dev)
+    B, P, steps = 2, 8, 12
+    eng = Engine(params, cfg, batch=B, n_slots=48, prefill_len=P,
+                 device=dev)
+    rng = np.random.RandomState(12)
+    for rid, new in enumerate((5, 20, 20)):
+        eng.submit(Request(rid, rng.randint(0, cfg.vocab_size, P).astype(
+            np.int32), max_new=new))
+    step = make_decode_step(cfg)
+    ops.reset_launches()
+    refilled = False
+    with torch.no_grad():
+        for s in range(steps):
+            for i in range(B):      # the step's refills, as Engine.step
+                if eng.slots[i] is None and eng.queue:
+                    eng._fill_slot(i, eng.queue.pop(0))
+                    refilled |= s > 1
+            active = [i for i in range(B) if eng.slots[i] is not None]
+            cache = KVCache(*(t.clone() for t in eng.cache))
+            tok = torch.as_tensor(eng.cur, device=dev)
+            pos = int(eng.pos.max())
+            before = ops.LAUNCHES["decode_attention"]
+            assert eng.step()
+            assert ops.LAUNCHES["decode_attention"] - before == cfg.n_layers
+            want, cache = step(params, tok, cache, pos)
+            want = want.cpu().numpy()
+            assert all(eng.cur[i] == want[i] for i in active), s
+            for a, b in zip(eng.cache, cache):
+                assert torch.equal(a, b), s
+    assert refilled and eng.stats.completed == 1
+    assert eng.captures == 1 and eng.replays == steps - 1
+
+
 @pytest.mark.gpu
 def test_decoder_serving_path_launches_attention_kernels_on_card():
     """Prefill and decode of a smoke decoder with the switch on: one flash
